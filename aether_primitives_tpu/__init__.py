@@ -1,15 +1,16 @@
-"""aether-primitives-tpu: a TPU-native software-defined-radio primitives framework.
+"""aether-primitives-tpu: a software-defined-radio primitives framework in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capability surface of the Rust crate
-``razorheadfx/aether_primitives`` (see SURVEY.md), re-designed TPU-first:
+A JAX/XLA framework with the capability surface of the Rust crate
+``razorheadfx/aether_primitives`` (see SURVEY.md), re-designed for accelerators:
 
 - the unit of data is an HBM-resident block tensor of complex64 samples
   (``[batch..., block_len]``), not a heap ``Vec<cf32>``;
 - element-wise "VecOps" are jnp ops fused by XLA (plus a chainable wrapper);
-- FFTs run as plan-cached jitted transforms with an MXU matmul backend
-  (four-step Cooley-Tukey as batched DFT-factor matmuls);
+- FFTs run as plan-cached jitted transforms (XLA's FFT, or a matmul
+  backend: four-step Cooley-Tukey as batched DFT-factor matmuls);
 - streaming runs as sharded block graphs over a ``jax.sharding.Mesh`` with
-  overlap-save halo exchange over ICI, instead of thread-per-stage mpsc pipelines.
+  overlap-save halo exchange between devices, instead of thread-per-stage mpsc
+  pipelines.
 
 Numeric contract: the reference's ``assert_evm!`` macro (reference src/lib.rs:26-49),
 vectorized here as :func:`assert_evm` with the same -80 dB default.

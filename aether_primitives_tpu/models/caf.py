@@ -13,9 +13,9 @@ evaluated over a grid of Doppler hypotheses ``nu`` (cycles/sample) and
 all circular delays ``tau`` — the acquisition stage of GNSS receivers,
 radar processors, and TDOA/FDOA geolocation.
 
-TPU-first realization: one Doppler hypothesis = one derotated copy of
+Realization: one Doppler hypothesis = one derotated copy of
 ``x``, so the whole surface is a single *batched* circular correlation —
-``[n_dop, N]`` forward FFT (the framework's MXU matmul-FFT backend),
+``[n_dop, N]`` forward FFT,
 one elementwise multiply by ``conj(FFT(ref))``, one batched inverse.
 No per-hypothesis loop; the Doppler axis is just a batch dimension. The
 sequential-search structure of a classic serial-acquisition receiver
@@ -155,7 +155,7 @@ def sharded_ambiguity(
     row is an independent derotate + circular correlation — the GNSS
     PRN x Doppler search grid), so the mesh splits the rotator bank: the
     block ``x`` and signature ``ref`` are replicated to every device
-    over ICI once, each device correlates its ``n_dop / n_dev``
+    once, each device correlates its ``n_dop / n_dev``
     hypotheses, and the surface comes back sharded row-wise — no
     collectives inside the hot loop at all. Identical (bit-for-bit: the
     per-row math never crosses shards) to the single-device surface

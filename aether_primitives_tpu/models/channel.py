@@ -78,7 +78,7 @@ def jakes(key, n: int, doppler: float, n_paths: int = 32) -> jnp.ndarray:
     + phi_m)}`` with uniform arrival angles and phases — unit mean power,
     envelope Rayleigh, autocorrelation ``J0(2 pi f_d tau)`` as M grows.
     ``doppler`` in cycles/sample. One ``[M, n]`` broadcast + reduction
-    (VPU work), no IIR spectral-shaping recursion to serialize.
+    (elementwise work), no IIR spectral-shaping recursion to serialize.
     """
     ka, kp = jax.random.split(key)
     alpha = jax.random.uniform(ka, (n_paths,), jnp.float32, 0.0, 2.0 * np.pi)

@@ -3,7 +3,7 @@
 The compute core of the reference's ``plot::waterfall`` (reference
 src/util/plot.rs:36-99): pad a long capture to a multiple of ``fft_len``,
 transform each chunk (``Scale::SN``), fftshift (``vec_mirror``), take
-per-bin magnitude (optionally dB). On TPU the per-chunk loop becomes one
+per-bin magnitude (optionally dB). Here the per-chunk loop becomes one
 batched FFT over a ``[rows, fft_len]`` block — embarrassingly parallel
 across rows and the ideal first multi-chip workload (rows shard over the
 mesh with no halo at all).
@@ -14,7 +14,7 @@ a sinc with −13 dB sidelobes (adjacent-channel leakage); a critically
 sampled polyphase filterbank replaces the implicit rectangle with a
 ``P·n_chan``-tap prototype lowpass folded across ``P`` frames, giving
 each channel a real filter skirt at the cost of ``P`` fused multiply-adds
-per sample before the same batched FFT. TPU shape: frames are a dense
+per sample before the same batched FFT. Shape: frames are a dense
 ``[T, n_chan]`` reshape (no strided gather), the branch weighting is
 ``P`` stride-1 slab multiplies down the frame axis, and the DFT across
 branches is the batched matmul FFT — causal across frames, so it streams
@@ -52,10 +52,10 @@ def _frames_overlapped(x: jnp.ndarray, fft_len: int, hop: int) -> jnp.ndarray:
     starting at ``m*hop``; the capture is zero-padded so the last frame is
     complete.
 
-    TPU-safe construction: requires ``fft_len % hop == 0``; the capture
+    Construction: requires ``fft_len % hop == 0``; the capture
     reshapes into hop-sized slabs and each frame is a concat of ``q =
-    fft_len/hop`` consecutive slabs — dense slices only, no strided gather
-    (DEVNOTES.md).
+    fft_len/hop`` consecutive slabs — dense slices only, no strided
+    gather.
     """
     if hop == fft_len:
         return _pad_rows(x, fft_len)
@@ -136,7 +136,7 @@ def welch_psd(
 ):
     """Welch power-spectral-density estimate: windowed overlapped frames,
     per-frame periodogram, averaged — the statistical companion to
-    :func:`waterfall_spectra` (same TPU-safe framing: dense slab concat, one
+    :func:`waterfall_spectra` (same framing: dense slab concat, one
     batched FFT, one mean; no gathers).
 
     Conventions match ``scipy.signal.welch(..., detrend=False,
@@ -262,10 +262,9 @@ def pfb_channelize(
     ``[..., (P-1)*M]`` samples preceding the capture (the sharded path
     passes the left-neighbor halo; zeros = cold start).
 
-    TPU notes: frames are a dense reshape, the ``p``-shifts are stride-1
+    Layout: frames are a dense reshape, the ``p``-shifts are stride-1
     slices of a ``[T+P-1, M]`` extended frame stack (no strided gather,
-    no ``lax.conv`` — DEVNOTES.md), and the branch DFT is the batched
-    matmul FFT with ``M`` as the lane dimension.
+    no ``lax.conv``), and the branch DFT is one batched FFT over ``M``.
     """
     x = jnp.asarray(samples, dtype=cf32)
     m = int(n_chan)
@@ -381,7 +380,7 @@ def sharded_pfb(
     fft_backend: Optional[str] = None,
 ) -> jnp.ndarray:
     """PFB with contiguous time spans sharded across the mesh: each shard
-    pulls its ``(P-1)*n_chan``-sample left halo over ICI
+    pulls its ``(P-1)*n_chan``-sample left halo from its neighbor
     (:func:`~aether_primitives_tpu.parallel.halo.left_tail`), so the output
     equals the single-device :func:`pfb_channelize` bit-for-bit. Each
     device span must be divisible by ``n_chan``."""
@@ -462,7 +461,6 @@ def pfb_synthesize(
     taps: Optional[np.ndarray] = None,
     scale: Scale = Scale.N,
     fft_backend: Optional[str] = None,
-    pallas: Optional[object] = None,
 ) -> jnp.ndarray:
     """Critically sampled polyphase synthesis filterbank (the dual of
     :func:`pfb_channelize`): ``[..., T, n_chan]`` channel frames ->
@@ -481,13 +479,9 @@ def pfb_synthesize(
     are the partial overlap-add tail — keep them when stitching blocks
     (:class:`PfbSynthesizer` does) or trim for a one-shot call.
 
-    TPU notes: the channel iDFT is the batched matmul FFT; the overlap-add
-    sums ``Q`` stride-1 SLICES of one padded tensor (``vp[q-1-p : +S]``),
-    which XLA fuses into a single output pass — measured 1.5x faster than
-    summing ``Q`` per-term padded tensors, and 2x faster than a spectral
-    per-channel frame-axis FIR whose transposes + FFT padding eat the
-    savings (chip A/B in DEVNOTES; 2048 ch, Q=16: 2.42 ms / 4M samples =
-    1.73 Gsa/s).
+    Layout: the channel iDFT is one batched FFT; the overlap-add sums
+    ``Q`` stride-1 SLICES of one padded tensor (``vp[q-1-p : +S]``),
+    which XLA can fuse into a single output pass.
     """
     y = jnp.asarray(frames, dtype=cf32)
     m = int(n_chan) if n_chan is not None else y.shape[-1]
@@ -508,34 +502,6 @@ def pfb_synthesize(
         out = v * jnp.asarray(gb[0])
         return out.reshape(out.shape[:-2] + (t_frames * m,))
     s_len = t_frames + q - 1
-
-    # default stays the XLA slice-sum: at Q=16/m=2048 it measured 2163
-    # vs 1900 Msa/s for the resident-tile spread — XLA already fuses the
-    # Q slices into few output passes here, unlike the os bank's
-    # P*os-pass fold where the kernel wins 4-5x (DEVNOTES round 3).
-    use_pallas = pallas if pallas else False
-    if use_pallas and v.ndim == 2 and not (np.abs(gb.imag) > 0).any():
-        # the overlap-add spread is the analysis fold with reversed
-        # branches (out[s] = sum_q vp[s + q-1-pi] * gb[pi]) — same
-        # resident-tile kernel as the os bank (ops/pallas/pfb_fold.py)
-        from ..ops.pallas.pfb_fold import pfb_fold_os
-
-        gb_rev = jnp.asarray(
-            np.ascontiguousarray(gb.real[::-1]).astype(np.float32)
-        )
-        tile = max(8, min(64, s_len))
-        n_t = -(-s_len // tile)
-        need_k = (n_t * tile - 1 + q) * m
-        wp = jnp.pad(v, [(q - 1, q - 1), (0, 0)]).reshape(-1)
-        wp = jnp.pad(wp, (0, max(0, need_k - wp.shape[-1])))
-        o_r, o_i = pfb_fold_os(
-            jnp.real(wp).astype(jnp.float32),
-            jnp.imag(wp).astype(jnp.float32),
-            gb_rev, 1, s_len, tile_t=tile,
-            interpret=(use_pallas == "interpret"),
-        )
-        out = jax.lax.complex(o_r[0], o_i[0])  # [s_len, M]
-        return out.reshape(s_len * m)
 
     vp = jnp.pad(v, [(0, 0)] * (nb - 2) + [(q - 1, q - 1), (0, 0)])
     acc = None
@@ -779,7 +745,6 @@ def pfb_channelize_os(
     taps_per_branch: int = 16,
     scale: Scale = Scale.NONE,
     fft_backend: Optional[str] = None,
-    pallas: Optional[object] = None,
 ) -> jnp.ndarray:
     """OVERSAMPLED polyphase analysis filterbank: channel frames advance by
     ``hop = n_chan/os`` input samples (``os``-times oversampled channels),
@@ -799,24 +764,15 @@ def pfb_channelize_os(
     WOLA inverse (:func:`pfb_synthesize_os`) reconstructs to the
     prototype's stopband floor instead of -35 dB.
 
-    ``pallas`` selects the resident-tile fold kernel
-    (:mod:`~aether_primitives_tpu.ops.pallas.pfb_fold`): ``None`` = auto
-    (on for flat real-prototype inputs on TPU with ``M % 128 == 0``),
-    ``True``/``False`` force, ``"interpret"`` runs the kernel in
-    interpreter mode (CPU tests). The kernel computes the identical fold
-    (same accumulation order) with the overlapped input slab resident in
-    VMEM instead of ``P * os`` HBM passes.
-
-    TPU notes: an ``os``-oversampled bank is ``os`` INTERLEAVED
+    Layout: an ``os``-oversampled bank is ``os`` INTERLEAVED
     critically sampled banks — class ``j`` is the plain ``M``-stride WOLA
     fold of ``x[j*hop:]`` (frame ``t = i*os + j`` starts at
     ``i*M + j*hop``), and its absolute-time reference roll is the
     CONSTANT ``j*hop`` (since ``t*hop mod M = j*hop``). Each class folds
     with ``P`` stride-1 slice-multiply-adds on full-``M``-wide ``[T/os,
-    M]`` tiles — the exact fold :func:`pfb_channelize` runs at 8 Gsa/s —
-    then classes interleave by a stack-reshape. (Materializing the
-    overlapped ``[T, P*M]`` segments instead measured 160x slower, and
-    hop-wide tiles 16x slower, on chip — DEVNOTES.)
+    M]`` tiles — the exact fold :func:`pfb_channelize` runs — then
+    classes interleave by a stack-reshape, never materializing the
+    overlapped ``[T, P*M]`` segments.
     """
     x = jnp.asarray(samples, dtype=cf32)
     m = int(n_chan)
@@ -838,46 +794,6 @@ def pfb_channelize_os(
     need = ((t_cls - 1) * os + (os - 1)) * hop + p * m  # last class frame end
     if need > n:
         x = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, need - n)])
-
-    use_pallas = pallas
-    # VMEM budget for the resident-tile kernel: two (tile_t + P - 1) x M
-    # f32 input slabs + two [tile_t, M] output tiles = 8*M*(2*tile_t+P-1)
-    # bytes; blocks past ~12 MB fail the remote Mosaic compile (DEVNOTES),
-    # so clamp tile_t and fall back to XLA when even tile_t = 8 won't fit
-    # (advisor finding r3: the auto path must not turn a working XLA graph
-    # into a compile failure at large M * P).
-    _VMEM_BUDGET = 12 << 20
-    tile_t_max = int((_VMEM_BUDGET // (8 * m) - (p - 1)) // 2)
-    if use_pallas is None:
-        try:
-            platform = jax.devices()[0].platform
-        except Exception:
-            platform = "cpu"
-        use_pallas = (
-            platform == "tpu"
-            and x.ndim == 1
-            and m % 128 == 0
-            and tile_t_max >= 8
-        )
-    if use_pallas and x.ndim == 1 and not (np.abs(h.imag) > 0).any():
-        from ..ops.pallas.pfb_fold import pfb_fold_os
-
-        tile_t = max(
-            8, min(64, t_cls, tile_t_max if tile_t_max >= 8 else 64)
-        )
-        n_t = -(-t_cls // tile_t)
-        need_k = (os - 1) * hop + (n_t * tile_t - 1 + p) * m
-        xk = jnp.pad(x, (0, max(0, need_k - x.shape[-1])))
-        out_r, out_i = pfb_fold_os(
-            jnp.real(xk).astype(jnp.float32),
-            jnp.imag(xk).astype(jnp.float32),
-            jnp.asarray(hb.real.astype(np.float32)),
-            os, t_cls, tile_t=tile_t,
-            interpret=(use_pallas == "interpret"),
-        )
-        u = jax.lax.complex(out_r, out_i)  # [os, t_cls, m], rolls applied
-        u = jnp.moveaxis(u, 0, 1).reshape(t_cls * os, m)[:t_frames]
-        return fft_plan(m, fft_backend).fwd(u, scale)
 
     classes = []
     for j in range(os):
@@ -907,16 +823,9 @@ def pfb_synthesize_os(
     fft_backend: Optional[str] = None,
     length: Optional[int] = None,
     normalize: bool = True,
-    pallas: Optional[object] = None,
 ) -> jnp.ndarray:
     """Matched-WOLA inverse of :func:`pfb_channelize_os`:
     ``[..., T, n_chan]`` oversampled channel frames -> samples.
-
-    ``pallas`` selects the resident-tile spread kernel for the per-class
-    overlap-add (the same kernel as the analysis fold with the branch
-    order reversed — the spread is the fold's correlation dual): ``None``
-    = auto (TPU, 2-D frames, real prototype, ``M % 128 == 0``),
-    ``True``/``False`` force, ``"interpret"`` for CPU tests.
 
     Synthesis prototype = the analysis prototype (matched filterbank),
     spread back at hop ``n_chan/os`` with exact per-sample normalization
@@ -962,69 +871,27 @@ def pfb_synthesize_os(
     m_slabs = t_cls + p - 1  # M-slabs per class stream
     n_slabs = m_slabs * os + (os - 1)  # hop-slabs of the combined output
 
-    use_pallas = pallas
-    if use_pallas is None:
-        try:
-            platform = jax.devices()[0].platform
-        except Exception:
-            platform = "cpu"
-        use_pallas = (
-            platform == "tpu"
-            and y.ndim == 2
-            and m % 128 == 0
-            and not (np.abs(h.imag) > 0).any()
+    acc = None
+    for j in range(os):
+        wj = wg[..., j, :]  # [..., t_cls, M]
+        a = (j * hop) % m  # undo the class's constant reference roll
+        if a:
+            wj = jnp.concatenate([wj[..., a:], wj[..., :a]], axis=-1)
+        wp = jnp.pad(wj, [(0, 0)] * (nb - 2) + [(p - 1, p - 1), (0, 0)])
+        oj = None
+        for pi in range(p):
+            sl = jax.lax.slice_in_dim(
+                wp, p - 1 - pi, p - 1 - pi + m_slabs, axis=-2
+            )
+            term = sl * jnp.asarray(hb[pi])
+            oj = term if oj is None else oj + term
+        oh = oj.reshape(oj.shape[:-2] + (m_slabs * os, hop))
+        oh = jnp.pad(
+            oh,
+            [(0, 0)] * (nb - 2) + [(j, n_slabs - m_slabs * os - j), (0, 0)],
         )
-    if use_pallas and y.ndim == 2 and not (np.abs(h.imag) > 0).any():
-        # per-class spread = the analysis fold with branch order reversed
-        # (oj[s] = sum_pi wp[s + p-1-pi] * hb[pi]); same resident-tile
-        # kernel, os=1, over the class's padded frame stream
-        from ..ops.pallas.pfb_fold import pfb_fold_os
-
-        hb_rev = jnp.asarray(np.ascontiguousarray(hb.real[::-1]).astype(np.float32))
-        tile = max(8, min(64, m_slabs))
-        n_t = -(-m_slabs // tile)
-        need_k = (n_t * tile - 1 + p) * m
-        acc = None
-        for j in range(os):
-            wj = wg[..., j, :]
-            a = (j * hop) % m
-            if a:
-                wj = jnp.concatenate([wj[..., a:], wj[..., :a]], axis=-1)
-            wp = jnp.pad(wj, [(p - 1, p - 1), (0, 0)]).reshape(-1)
-            wp = jnp.pad(wp, (0, max(0, need_k - wp.shape[-1])))
-            o_r, o_i = pfb_fold_os(
-                jnp.real(wp).astype(jnp.float32),
-                jnp.imag(wp).astype(jnp.float32),
-                hb_rev, 1, m_slabs, tile_t=tile,
-                interpret=(use_pallas == "interpret"),
-            )
-            oj = jax.lax.complex(o_r[0], o_i[0])  # [m_slabs, M]
-            oh = oj.reshape(m_slabs * os, hop)
-            oh = jnp.pad(oh, [(j, n_slabs - m_slabs * os - j), (0, 0)])
-            acc = oh if acc is None else acc + oh
-        out = acc.reshape(n_slabs * hop)
-    else:
-        acc = None
-        for j in range(os):
-            wj = wg[..., j, :]  # [..., t_cls, M]
-            a = (j * hop) % m  # undo the class's constant reference roll
-            if a:
-                wj = jnp.concatenate([wj[..., a:], wj[..., :a]], axis=-1)
-            wp = jnp.pad(wj, [(0, 0)] * (nb - 2) + [(p - 1, p - 1), (0, 0)])
-            oj = None
-            for pi in range(p):
-                sl = jax.lax.slice_in_dim(
-                    wp, p - 1 - pi, p - 1 - pi + m_slabs, axis=-2
-                )
-                term = sl * jnp.asarray(hb[pi])
-                oj = term if oj is None else oj + term
-            oh = oj.reshape(oj.shape[:-2] + (m_slabs * os, hop))
-            oh = jnp.pad(
-                oh,
-                [(0, 0)] * (nb - 2) + [(j, n_slabs - m_slabs * os - j), (0, 0)],
-            )
-            acc = oh if acc is None else acc + oh
-        out = acc.reshape(acc.shape[:-2] + (n_slabs * hop,))
+        acc = oh if acc is None else acc + oh
+    out = acc.reshape(acc.shape[:-2] + (n_slabs * hop,))
     if normalize:
         # exact normalization: overlap-add of h*g (= h^2, matched) tiles
         full = n_slabs * hop
@@ -1185,7 +1052,7 @@ def sharded_pfb_os(
 ) -> jnp.ndarray:
     """Oversampled PFB with contiguous time spans sharded over the mesh:
     frames are FORWARD-looking, so each shard pulls a ``P*M - hop`` RIGHT
-    halo over ICI (:func:`~aether_primitives_tpu.parallel.halo.right_head`
+    halo from its neighbor (:func:`~aether_primitives_tpu.parallel.halo.right_head`
     — the dual of the causal chains' left halo) and emits the
     ``span/hop`` frames that start inside its span. Equals the
     single-device :func:`pfb_channelize_os` frame-for-frame (the last

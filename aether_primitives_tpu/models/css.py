@@ -8,12 +8,12 @@ chirp ("dechirp"), which collapses every symbol to a pure tone at bin
 works far below the per-chip noise floor (processing gain ≈
 ``10 log10(N)`` dB).
 
-TPU shape: modulation is an exact-integer-mod phase table (the quadratic
+Shape: modulation is an exact-integer-mod phase table (the quadratic
 chirp phase and the per-symbol tone both reduce mod ``N`` in int32
 before the trig, so f32 never sees a large argument — the same
 exact-mod discipline as the NCO in :mod:`~..ops.frontend`), and
-demodulation is the framework's batched matmul FFT over ``[n_sym, N]``
-frames. No scans, no gathers on the chip data path.
+demodulation is the framework's batched FFT over ``[n_sym, N]``
+frames. No scans, no gathers on the device data path.
 
 Identity used: for even ``N``, ``u[(k+s) mod N] = u[s] * u[k] *
 e^{j 2 pi s k / N}`` with ``u[k] = e^{j pi k^2 / N}`` — the cyclic shift

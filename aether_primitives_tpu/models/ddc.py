@@ -5,7 +5,7 @@ The reference stops at primitives (mix/filter/decimate all exist separately
 by SURVEY.md §2 — but its fir.rs is a stub and there is no mixer at all);
 a deployed receiver composes them constantly: tune to a channel, filter it,
 and drop the rate. These models provide that composition as one streaming,
-jittable stage built on the framework's TPU-first kernels:
+jittable stage built on the framework's kernels:
 
 - :class:`Ddc` — ``y = decimate(lowpass(x * e^{-j 2 pi f n}))``. The mixer
   is the exact-mod NCO (:func:`..ops.frontend.nco_mix`); filter+decimate is
@@ -164,7 +164,7 @@ def sharded_ddc(
     axis_name: str = "time",
 ) -> jnp.ndarray:
     """DDC over a time-sharded capture: bit-close to single-device
-    ``Ddc(config).step`` on the gathered signal, scaled over ICI.
+    ``Ddc(config).step`` on the gathered signal, scaled over the mesh.
 
     Each shard holds a contiguous span of the capture. Two pieces make the
     result exactly continuous across shards:
@@ -176,7 +176,7 @@ def sharded_ddc(
       ``[mesh_size]`` table — no long in-shard ramps, same precision as
       the exact-mod NCO).
     - **filter halo**: the left neighbor's last ``K-1`` *mixed* samples
-      arrive over ICI (:func:`~aether_primitives_tpu.parallel.halo.left_tail`)
+      arrive from the neighbor device (:func:`~aether_primitives_tpu.parallel.halo.left_tail`)
       as the decimating overlap-save history.
 
     ``n_local`` must be divisible by ``decimation`` so the decimated
@@ -335,7 +335,7 @@ def sharded_duc(
 
     The mirror of :func:`sharded_ddc`: each shard runs the polyphase
     branch filters with the left neighbor's ``kb-1`` input samples as
-    overlap-save history (ICI halo), interleaves locally (a shard's
+    overlap-save history (halo exchange), interleaves locally (a shard's
     ``n_local`` inputs produce exactly its ``n_local * L`` contiguous
     outputs — the interleave never crosses shards), and mixes up with a
     per-shard f64-exact oscillator rotator at the OUTPUT rate.

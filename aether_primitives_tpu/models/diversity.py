@@ -1,7 +1,7 @@
 """Antenna diversity: receive combining (MRC/EGC/selection) and the
 Alamouti 2x1 space-time block code.
 
-Multi-antenna capture is the natural TPU batch axis — a diversity
+Multi-antenna capture is the natural batch axis — a diversity
 receiver is ONE fused elementwise pass over ``[..., n_rx, n]`` blocks
 (no per-antenna loops), and the Alamouti decoder is two conjugate
 multiplies and an add. Everything here is flat-fading per-branch
@@ -136,7 +136,7 @@ def mimo_detect_zf(y, h):
     ``y = H s + n`` with ``y [..., n_rx]``, ``h [..., n_rx, n_tx]``
     (broadcastable — pass one matrix per burst or per symbol). Returns
     ``s_hat = pinv(H) y`` computed via the normal equations
-    (``(H^H H)^{-1} H^H y`` — batched tiny solves, TPU-friendly).
+    (``(H^H H)^{-1} H^H y`` — batched tiny solves).
     Requires ``n_rx >= n_tx``."""
     y = jnp.asarray(y, dtype=cf32)
     h = jnp.asarray(h, dtype=cf32)

@@ -7,9 +7,9 @@ for delay-and-sum or MVDR beamforming. The reference has no array
 support; this extends the deployed-SDR surface the same way the FEC and
 sync layers do (reference defines the numeric contracts, not the scope).
 
-TPU shape: everything reduces to small dense linear algebra batched over
+Shape: everything reduces to small dense linear algebra batched over
 an angle GRID — steering matrix ``[G, M]`` against covariance ``[M, M]``
-as one or two matmuls (MXU), eigendecomposition of the ``[M, M]``
+as one or two matmuls, eigendecomposition of the ``[M, M]``
 covariance via ``jnp.linalg.eigh`` (M is 4-64: tiny), peak-finding as a
 masked top-k over the static grid (no data-dependent shapes). Angles are
 radians from broadside; ``d_lambda`` is element spacing in wavelengths
@@ -304,8 +304,7 @@ def sharded_estimate_doa(
     smoothing: Optional[int] = None,
 ) -> jnp.ndarray:
     """:func:`estimate_doa` over a WINDOW batch ``x [W, M, T]`` with the
-    window axis sharded over ``mesh`` — the scan-mode form (VERDICT r3
-    items 6-7): each device runs the full covariance + eigh + grid-matmul
+    window axis sharded over ``mesh`` — the scan-mode form: each device runs the full covariance + eigh + grid-matmul
     + peak pipeline on its ``W / n_dev`` windows, pure data parallel (no
     collectives; windows are independent estimates). Returns ``[W, K]``
     sorted bearings, identical to the unsharded batched call

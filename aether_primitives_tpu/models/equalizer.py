@@ -8,7 +8,7 @@ from a training sequence (LMS), from its own decisions (decision-directed),
 or fully blind from the constant-modulus property (CMA).
 
 Adaptation is inherently sequential — each symbol's weight update feeds the
-next — so the TPU realization is a ``lax.scan`` carrying the ``[ntaps]``
+next — so the realization is a ``lax.scan`` carrying the ``[ntaps]``
 weight vector: one compiled loop, no Python iteration, batched inner dots.
 The sliding input windows are built once from ``ntaps`` stride-1 slices
 (the shift-and-add layout; no gathers). For block-rate adaptation of very
@@ -140,7 +140,8 @@ def fdaf(
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Frequency-domain adaptive filter (constrained overlap-save block
     NLMS): identify/track the system mapping ``x -> d`` with one weight
-    update per ``B``-sample block — the TPU-idiomatic adaptive filter.
+    update per ``B``-sample block — the accelerator-idiomatic adaptive
+    filter.
 
     Where :func:`lms_equalize` updates per symbol (a serial scan of tiny
     dots), FDAF does all of its work as ``2B``-point batched FFTs and
@@ -257,7 +258,7 @@ def rls_equalize(
     hundreds (tested) — the short-preamble equalizer. The price is an
     ``[ntaps, ntaps]`` inverse-correlation state updated per step; at
     equalizer lengths (tens of taps) that is a tiny outer product per
-    scan step, fused on the VPU.
+    scan step, fused elementwise.
 
     ``lam``: forgetting factor (1.0 = growing window; < 1 tracks drift).
     ``delta``: initial inverse-correlation scale (P0 = I/delta) — small

@@ -3,7 +3,7 @@
 The hop/dehop pair for a synchronized slow-FHSS link: the baseband
 signal is carved into hop dwells and each dwell mixed to its channel by
 a per-dwell complex rotator — one batched elementwise pass (the dwell
-axis is the TPU batch axis; per-dwell oscillators come from one host
+axis is the batch axis; per-dwell oscillators come from one host
 table, no sequential NCO state). The hop pattern derives from the
 framework's PN machinery (:func:`~..ops.sequence.lte_gold`), so TX and
 RX regenerate it from a shared seed.

@@ -5,8 +5,7 @@ Two tiers:
 - :class:`Modem` — the reference's QPSK loopback (reference
   examples/modem.rs: bits → QPSK → AWGN → hard demod → bit-exact assert),
   fully batched and jittable; the PR1 acceptance path.
-- :class:`RxChain` — the production receive chain from BASELINE.json's
-  multi-host config: FIR (channel-select) → decimate → blocked FFT →
+- :class:`RxChain` — the production receive chain: FIR (channel-select) → decimate → blocked FFT →
   demod, as one fused jitted step over sample blocks; shards over a time
   axis with halo exchange via
   :func:`aether_primitives_tpu.parallel.halo.sharded_fir`-style wrapping.
@@ -92,33 +91,24 @@ class RxChainConfig:
     # pulse-shaping filters' flat region so a TxChain->RxChain loopback is
     # bit-exact.
     active_bins: Optional[int] = None
-    # FIR realization: "fused" (the TPU default — FIR + decimation + frame
-    # FFT collapse into ONE span-point forward FFT per frame via spectral
-    # folding, ops/fir.py:fir_decimate_fft), "os" (overlap-save through the
-    # matmul FFT: FFT -> H -> iFFT, then a separate decimating FFT) or
-    # "shift_add" (exact time domain, the CPU default). None = auto by
-    # platform. All three produce identical demod bits (tested).
+    # FIR realization: "shift_add" (exact time domain; None selects it),
+    # "fused" (FIR + decimation + frame FFT collapse into ONE span-point
+    # forward FFT per frame via spectral folding,
+    # ops/fir.py:fir_decimate_fft) or "os" (overlap-save: FFT -> H ->
+    # iFFT, then a separate decimating FFT). All three produce identical
+    # demod bits (tested).
     fir_mode: Optional[str] = None
-    # MXU precision of the fused frame op: "highest" (full-f32 emulation,
-    # -137 dB vs f64) or "high" (bf16x3, half the MXU passes). None = auto:
-    # "high" on TPU, "highest" elsewhere. Measured on the v5e chip
-    # (benches/precision_experiment.py): HIGH runs the spectra stage 1.7x
-    # faster at -92.8 dB vs f64 — 12.8 dB better than the reference's
-    # -80 dB assert_evm contract — with 1.000000 demod bit agreement;
-    # DEFAULT (-46.9 dB) fails the gate and is rejected.
+    # Einsum precision of the fused frame op: "highest" (full f32, the
+    # default when None) or "high" (bf16x3). DEFAULT is rejected: it
+    # fails the reference's -80 dB assert_evm contract.
     precision: Optional[str] = None
     # First-stage size of the fused op's two-einsum path (must divide
-    # fft_len). None = heuristic (largest divisor <= 128). The choice
-    # trades stage-1 contraction depth against stage-2 minor-dim lane
-    # utilisation; sweep on hardware with benches/n1_sweep.py.
+    # fft_len). None = heuristic (largest divisor <= 128).
     stage_n1: Optional[int] = None
     # Emit PACKED bits: uint8 bytes holding 8 bits each, LSB-first
     # (np.unpackbits(..., bitorder="little") restores the flat stream) —
-    # the format a production modem hands to the MAC layer. Measured on
-    # chip (DEVNOTES round 5): unpacked per-bit u8 emission costs
-    # 650-750 us/4M-sample block in u8/u16 relayouts — 72% of the whole
-    # step — while the packed arithmetic epilogue costs ~116 us and
-    # cuts downstream HBM/host traffic 8x. Off by default: the
+    # the format a production modem hands to the MAC layer, with 8x less
+    # downstream memory and host traffic. Off by default: the
     # reference's demod contract is one byte per bit
     # (reference src/modulation.rs:133-144).
     packed_bits: bool = False
@@ -155,13 +145,7 @@ def _resolve_chain(config: "RxChainConfig"):
     else:
         taps = np.asarray(config.fir_taps, dtype=np.complex64)
     plan = fft_plan(config.fft_len, config.fft_backend)
-    mode = config.fir_mode
-    if mode is None:
-        try:
-            platform = jax.devices()[0].platform
-        except Exception:
-            platform = "cpu"
-        mode = "fused" if platform == "tpu" else "shift_add"
+    mode = config.fir_mode or "shift_add"
     if mode not in ("fused", "os", "shift_add"):
         raise ValueError(f"unknown fir_mode {mode!r}")
     return modulation, taps, plan, mode
@@ -207,10 +191,9 @@ class RxChain:
     def _fir(self, x, history=None):
         taps = jnp.asarray(self.taps)
         if self.fir_mode in ("os", "fused"):
-            # measured sweet spot on v5e: ~4k blocks (FFT work per sample
-            # grows with block size; per-block overhead dominates below
-            # ~2k). fir_filter_os pads the tail block, so no divisibility
-            # constraint applies.
+            # ~4k blocks: FFT work per sample grows with block size and
+            # per-block overhead dominates below ~2k. fir_filter_os pads
+            # the tail block, so no divisibility constraint applies.
             k = taps.shape[-1]
             block_len = max(min(4096, x.shape[-1]), k - 1 if k > 1 else 1)
             return _fir.fir_filter_os(
@@ -244,13 +227,7 @@ class RxChain:
         return fft_of_decimated(frames, cfg.decimation, Scale.SN, cfg.fft_backend)
 
     def _einsum_precision(self):
-        name = self.config.precision
-        if name is None:
-            try:
-                platform = jax.devices()[0].platform
-            except Exception:
-                platform = "cpu"
-            name = "high" if platform == "tpu" else "highest"
+        name = self.config.precision or "highest"
         try:
             return {
                 "highest": jax.lax.Precision.HIGHEST,
@@ -259,7 +236,7 @@ class RxChain:
         except KeyError:
             raise ValueError(
                 f"precision {name!r} not allowed (expected 'highest' or "
-                "'high'; DEFAULT fails the -80 dB EVM contract on TPU)"
+                "'high'; DEFAULT fails the -80 dB EVM contract)"
             ) from None
 
     def _active(self, spec) -> jnp.ndarray:
@@ -347,10 +324,7 @@ class RxChain:
         if cfg.modulation == "bpsk":
             if cfg.packed_bits and n1 % 8 == 0:
                 # pack 8 adjacent k1 symbols per byte while k1 still
-                # leads: group slicing is free on the leading axis and
-                # the u32->u8 convert runs on a full-lane 2-D shape —
-                # the per-bit u8 emission costs 650+ us in relayouts
-                # (DEVNOTES r5 residue attribution)
+                # leads: group slicing is free on the leading axis
                 b = (re + im < 0).astype(jnp.uint32)
                 g = b.reshape((n1 // 8, 8) + b.shape[1:])
                 byte = g[:, 0]
@@ -553,7 +527,7 @@ class RxChain:
     def sharded_step(self, block, mesh, axis_name: str = TIME_AXIS):
         """Time-sharded step: the capture's last axis splits into contiguous
         per-device spans; the FIR history crosses shard boundaries via an
-        ICI halo exchange, so the output is identical to :meth:`step`.
+        halo exchange, so the output is identical to :meth:`step`.
 
         Each device span must be divisible by ``decimation * fft_len``
         (:attr:`frame_span`); ragged captures must pick a tail policy
@@ -590,7 +564,7 @@ class RxChain:
     def _shard_streaming_bits(self, x, s, time_axis):
         """Per-shard streaming body (inside ``shard_map``): the carried
         block-to-block state enters the FIRST time shard's halo slot; all
-        other shards take their left neighbor's tail over ICI as usual.
+        other shards take their left neighbor's tail via the halo exchange as usual.
         Returns ``(bits, new_state)`` with ``new_state`` replicated over the
         time axis (psum-broadcast of the LAST shard's full-rate tail)."""
         k = self.taps.shape[-1]
@@ -627,7 +601,7 @@ class RxChain:
         flagship composition: a CONTINUOUS capture processed block-by-block
         (the reference's pipeline contract, reference src/pipeline.rs:70-79)
         where each block is itself sharded into contiguous per-device time
-        spans (with ICI halo exchange) across independent channels.
+        spans (with halo exchange) across independent channels.
 
         ``(block, state) -> (bits, new_state)``: ``block`` is
         ``[channels, n]`` sharded ``P(channel, time)``; ``state`` is the
@@ -679,13 +653,9 @@ class RxChain:
         input — the boundary-safe signature for backends that cannot transfer
         complex arrays (bits out are uint8, already real).
 
-        Merges the planes and takes the complex fast path: the explicit
-        all-real alternative (:func:`~aether_primitives_tpu.ops.fir.
-        fir_decimate_fft_planes` + :meth:`_bits_from_planes`) measured
-        ~8% SLOWER on chip (1.20 vs 1.11 ms/block) — XLA's complex GEMM
-        shares operand loads across the four real products that separate
-        real einsums each re-read (DEVNOTES.md), so the merge pass pays
-        for itself.
+        Merges the planes and takes the complex path (the all-real
+        alternative is :func:`~aether_primitives_tpu.ops.fir.
+        fir_decimate_fft_planes` + :meth:`_bits_from_planes`).
         """
         from ..boundary import Split
 
@@ -696,8 +666,8 @@ class RxChain:
     def jitted(self, donate: bool = True, split_boundary: bool = False):
         """Compile the step (optionally donating the input block's HBM).
 
-        ``split_boundary=True`` compiles :meth:`step_split` instead — use on
-        TPU runtimes without complex transfer support.
+        ``split_boundary=True`` compiles :meth:`step_split` instead, for
+        callers that hold samples as interleaved or split f32 planes.
         """
         fn = self.step_split if split_boundary else self.step
         return jax.jit(fn, donate_argnums=(0,) if donate else ())

@@ -9,7 +9,7 @@ gain, so the :class:`.sync.OfdmEqualizer` is *exact* (not approximate) and
 frame alignment/CFO come for free from the CP's self-similarity — no
 preamble needed.
 
-All TPU-first: frames are one batched (i)FFT; the CP prepend/strip are
+Frames are one batched (i)FFT; the CP prepend/strip are
 dense slices + concat on the last axis; CP sync is elementwise lag-N
 correlation plus a cumsum moving window (no convs, no gathers, no host
 scans).
@@ -177,7 +177,7 @@ def sc_preamble(config: OfdmConfig, seed: int = 815) -> np.ndarray:
     active subcarriers only (amplitude √2 keeps unit average power), so
     the useful part consists of two identical ``fft_len/2`` halves —
     the self-similarity :func:`sc_sync` detects. Host-side numpy
-    (complex constants embed at trace time — DEVNOTES boundary rule).
+    (complex constants embed at trace time).
     """
     cfg = config
     if cfg.fft_len % 2:

@@ -76,7 +76,7 @@ class PacketConfig:
     # save_qc_npz convention). The table is validated (rank, degrees,
     # girth report) and replaces the built-in Gallager ensemble; a QC
     # .npz additionally engages the fast QC edge-message decoder. The
-    # drop-in slot for published standard tables (VERDICT r4 item 4).
+    # drop-in slot for published standard tables.
     ldpc_file: Optional[str] = None
     # fec="nr_ldpc" with a file-loaded base graph (same .npz convention)
     # — the TS 38.212 shift-table drop-in path for NrLdpc(base_graph=)
@@ -223,7 +223,7 @@ class PacketModem:
             if c.fec == "ldpc11n":
                 h, g, info = _ldpc.wifi_ldpc()
                 # QC edge-message decoder: bit-identical to the dense
-                # plane, ~48x faster on chip (DEVNOTES round 3)
+                # plane
                 self._ldpc_qc = (_ldpc._WIFI_648_R12, 27)
             elif c.ldpc_file is not None:
                 from ..ops import code_io as _cio
@@ -321,10 +321,8 @@ class PacketModem:
         self.mod_pad = (-line_bits) % bps
         self.n_data_symbols = (line_bits + self.mod_pad) // bps
         # ---- preamble: Gold QPSK, two identical halves. Constructed in
-        # HOST numpy: an eager device `modulate` here made the modem
-        # unconstructable in a TPU process (eager int conversions hit
-        # UNIMPLEMENTED on backends without eager complex/conversion
-        # support), and the preamble is a trace-time constant anyway.
+        # HOST numpy: the preamble is a trace-time constant, so building
+        # it costs no device dispatch at construction.
         pre_bits = np.asarray(
             _seq.lte_gold(c.preamble_cinit, 2 * c.preamble_half)
         )
@@ -465,7 +463,7 @@ class PacketModem:
         """Coded-bit LLRs → descramble-ready line bits. The ``viterbi``,
         ``turbo``, ``rs`` and ``ccsds`` branches accept LEADING BATCH
         AXES (their serial-trellis decoders batch natively with the
-        batch on the lane axis — :meth:`rx_batch` routes them around
+        batch on the minor axis — :meth:`rx_batch` routes them around
         ``vmap``); the other branches are single-burst (``rx_batch``
         vmaps them: their decoders are plane-shaped and batch fine
         under vmap)."""
@@ -492,7 +490,7 @@ class PacketModem:
                 # errors across RS codeword symbols. Inner decoders run
                 # WINDOWED (round 5): batched throughput needs the scan
                 # length bounded (T -> window + 2*guard with the windows
-                # on device lanes through the Pallas kernels), and the
+                # batched), and the
                 # generous guards keep the survivor/metric merge exact on
                 # the operating channels (sign-identical in tests; the
                 # outer RS + CRC guard any window-seam residue either way)
@@ -567,7 +565,7 @@ class PacketModem:
                 llr[..., 3 * nb : 3 * nb + 3],
                 llr[..., 3 * nb + 3 :],
                 iterations=8,
-                window=64,  # parallel BCJR, measured-best window (DEVNOTES)
+                window=64,  # parallel BCJR
                 guard=16,
             )
         else:
@@ -586,11 +584,10 @@ class PacketModem:
         graph — returns ``(payloads [B, payload_bits], crc_ok [B],
         diag)`` with every diag entry a ``[B]`` vector.
 
-        The TPU-native form of burst reception (VERDICT r3 item 1): the
-        per-burst :meth:`rx` is a *latency* path (one acquisition + one
-        decode per call — 374 bursts/s for viterbi on chip) while every
-        decoder underneath already batches over leading axes (the same
-        QC-LDPC core runs 480 Mbit/s at batch 1024). ``vmap`` lifts the
+        The throughput form of burst reception: the per-burst :meth:`rx`
+        is a *latency* path (one acquisition + one decode per call) while
+        every decoder underneath already batches over leading axes.
+        ``vmap`` lifts the
         whole acquire -> CFO -> equalize -> demod -> decode graph onto the
         batch axis, so the Viterbi/BCJR/min-sum scans execute once over
         ``[B, ...]`` planes — per-burst *throughput* amortizes every
@@ -607,11 +604,9 @@ class PacketModem:
         if self.config.fec in ("viterbi", "turbo", "rs", "ccsds",
                                "ldpc", "ldpc11n"):
             # serial-trellis FECs: route the decode AROUND vmap so it
-            # runs natively batched with the burst axis on device lanes
-            # (viterbi: the resident-metric Pallas kernel; turbo: the
-            # lane-batched BCJR) — vmap would pin the batch to axis 0
-            # and fall back to the scan forms. Bit-identical either way
-            # (the kernels are pinned to the scans bit for bit).
+            # runs natively batched (turbo: the batch-minor BCJR layout)
+            # — vmap would pin the batch to axis 0. Bit-identical to the
+            # per-burst path either way (tested).
             llr, diag = jax.vmap(self._rx_front)(x)
             line = self._decode_llr(llr)
             payload, ok = jax.vmap(self._rx_tail)(line)

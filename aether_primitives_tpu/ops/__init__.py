@@ -1,6 +1,6 @@
 """DSP kernels: element-wise vector ops, FFT, resampling, modulation,
-sequences, noise, and FIR/correlation — all batched jitted JAX / Pallas
-TPU kernels over complex64 sample blocks."""
+sequences, noise, and FIR/correlation — all batched jitted JAX kernels
+over complex64 sample blocks."""
 
 from . import vecops
 from . import fft

@@ -3,8 +3,8 @@
 The analog half of the SDR toolbox (the reference covers only digital
 PSK — src/modulation.rs): broadcast FM/AM capture and playback are the
 classic first workloads of any receiver framework. Everything here is
-elementwise/shift math on complex baseband blocks — pure VPU work that
-fuses into adjacent stages (a Ddc front end feeds these directly).
+elementwise/shift math on complex baseband blocks that fuses into
+adjacent stages (a Ddc front end feeds these directly).
 
 Conventions: frequencies normalized to cycles/sample; modulation index /
 deviation expressed in the same unit.

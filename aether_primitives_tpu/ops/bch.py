@@ -12,7 +12,7 @@ the capability surface the same way those modules did.
 BCH is Reed–Solomon's binary little sibling: codeword symbols are BITS,
 the syndromes/locator algebra lives in GF(2^m), and the error magnitude
 is always 1 — so the whole Forney stage of :mod:`.rs` disappears
-(a located error is just a bit flip). The TPU-native design follows
+(a located error is just a bit flip). The design follows
 ``rs.py``'s no-lookup-table rule, parametric in the field degree m:
 
 - *encoding* (systematic cyclic: ``m(x)·x^{n-k} mod g(x)``) is ONE
@@ -37,8 +37,9 @@ Decode failure is detected exactly (root count vs locator degree, BM
 register length ≤ t, plus a re-syndrome check — one more matmul), so
 ``ok`` means "the output IS a codeword", the strongest claim a
 bounded-distance decoder can make. Everything batches over leading
-axes and jits to a handful of f32 matmuls plus one tiny scan — the MXU
-shape, not the bit-twiddling shift-register shape CPU BCH uses.
+axes and jits to a handful of f32 matmuls plus one tiny scan — the
+matrix-unit shape, not the bit-twiddling shift-register shape CPU BCH
+uses.
 
 Shortened codes come free exactly as in :mod:`.rs`: ``n`` below
 ``2^m - 1`` is the virtual-full-length code with leading zeros, and

@@ -6,7 +6,7 @@ the framework's built-in NR graphs are NR-*structured* synthetics
 (:mod:`.nr_ldpc` module docstring), so when the real tables arrive —
 as files, the only honest way offline — they must load, validate, and
 run through the existing decode machinery without code changes
-(VERDICT r4 item 4; interop lineage: SURVEY.md §2 #8/#13).
+(interop lineage: SURVEY.md §2 #8/#13).
 
 Formats:
 

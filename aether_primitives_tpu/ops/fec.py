@@ -1,7 +1,7 @@
 """Forward error correction: convolutional encoding and Viterbi decoding.
 
 The channel-coding layer every deployed modem pairs with the modulation
-stack (the reference stops at uncoded PSK — src/modulation.rs). TPU-first
+stack (the reference stops at uncoded PSK — src/modulation.rs). Data-parallel
 realizations of the classic pair:
 
 - :func:`conv_encode` — a rate-``1/n`` convolutional code is ``n`` binary
@@ -142,53 +142,22 @@ def viterbi_decode(
     ~5-7 constraint lengths makes survivor paths merge, so the core
     decisions equal the full-block decode with overwhelming
     probability); both scans shrink from ``T`` to ``window + 2*guard``
-    steps with the windows batched. At PACKET sizes the full-block
-    decode measures faster (fatter windowed steps outweigh the step
-    reduction — same finding as the turbo radix study, DEVNOTES r3);
-    the windowed mode is for LONG streams, where the full-block scan's
-    serial length is prohibitive (a 1M-bit stream is ~2 s of serial
-    ACS steps full-block but ~224 batched steps windowed).
+    steps with the windows batched. The windowed mode is for LONG
+    streams, where the full-block scan's serial length is prohibitive
+    (a 1M-bit stream is a million serial ACS steps full-block but ~224
+    batched steps windowed).
     """
     llr = jnp.asarray(llrs, jnp.float32)
     n = len(polys)
     k = int(constraint)
     if llr.shape[-1] % n:
         raise ValueError(f"LLR count must be a multiple of n = {n}")
-    if backend == "auto":
-        # the resident-metric Pallas kernel (ops/pallas/viterbi.py) is
-        # bit-identical and runs both trellis passes in VMEM — the chip
-        # winner for batched/windowed decodes (benches/viterbi_kernel_ab).
-        # Single-stream full-block calls keep the XLA scan: they are the
-        # form that runs INSIDE vmapped graphs (PacketModem.rx), where a
-        # nested pallas_call batching rule is not a path we validate.
-        try:
-            platform = jax.devices()[0].platform
-        except Exception:
-            platform = "cpu"
-        batched_or_windowed = llr.ndim > 1 or window
-        # full-block kernels keep the whole decision history in VMEM —
-        # blocks too long for even a 128-lane tile must stay on the XLA
-        # scan (the windowed mode is the right tool there)
-        t_steps_probe = llr.shape[-1] // n
-        lw_probe = (window + 2 * guard) if window else t_steps_probe
-        fits_vmem = lw_probe * (1 << (k - 1)) * 128 <= 12_000_000
-        backend = (
-            "pallas"
-            if platform == "tpu" and batched_or_windowed and fits_vmem
-            else "xla"
-        )
-    if backend not in ("xla", "pallas", "pallas_interpret"):
+    if backend not in ("auto", "xla"):
         # a typo would silently select the XLA path and invalidate any
         # comparison (the polar_decoder review-finding class)
         raise ValueError(f"unknown backend {backend!r}")
-    if backend.startswith("pallas"):
-        return _viterbi_pallas(
-            llr, tuple(int(p) for p in polys), k, terminated, window, guard,
-            interpret=backend == "pallas_interpret",
-        )
     if llr.ndim != 1:
-        # the XLA scans are single-stream; batch via vmap (the portable
-        # reference path — batched throughput lives on the kernel)
+        # the XLA scans are single-stream; batch via vmap
         fn = lambda v: viterbi_decode(  # noqa: E731
             v, polys, constraint, terminated, window, guard, backend="xla"
         )
@@ -236,73 +205,6 @@ def viterbi_decode(
     if terminated:
         bits = bits[: t_steps - (k - 1)]
     return bits
-
-
-def _viterbi_pallas(llr, polys, k, terminated, window, guard,
-                    interpret=False):
-    """Bridge to the resident-metric kernel (ops/pallas/viterbi.py):
-    batched ``[..., L]`` full-block decodes put the BATCH on the lane
-    axis; ``window > 0`` additionally flattens the parallel windows onto
-    it (same span construction and boundary-forcing pad LLRs as
-    :func:`_viterbi_windowed`, so results are bit-identical to the XLA
-    scans — tested)."""
-    from .pallas.viterbi import viterbi_lanes
-
-    n = len(polys)
-    lead = llr.shape[:-1]
-    flat = llr.reshape((-1, llr.shape[-1]))
-    b_sz = flat.shape[0]
-    t_steps = flat.shape[-1] // n
-    sym = flat.reshape(b_sz, t_steps, n)
-
-    def run(spans, lw, init0, end0):
-        # spans [Lw, n, N] -> pad lanes to a tile multiple
-        n_lanes = spans.shape[-1]
-        tile = 256 if n_lanes >= 256 else 128
-        pad = -(-n_lanes // tile) * tile - n_lanes
-        spans = jnp.pad(spans, [(0, 0), (0, 0), (0, pad)])
-        bits = viterbi_lanes(spans, lw, n, polys, k, init0, end0,
-                             tile_n=tile, interpret=interpret)
-        return bits[:, :n_lanes]
-
-    if not window:
-        spans = jnp.transpose(sym, (1, 2, 0))  # [T, n, B]
-        bits = run(spans, t_steps, True, bool(terminated))
-        bits = bits.T.astype(jnp.uint8)  # [B, T]
-        if terminated:
-            bits = bits[:, : t_steps - (k - 1)]
-        return bits.reshape(lead + bits.shape[-1:])
-
-    n_win = -(-t_steps // window)
-    t_pad = n_win * window
-    lw = window + 2 * guard
-    big = jnp.float32(1e6)
-    head = jnp.full((b_sz, guard, n), big)
-    tail_len = guard + (t_pad - t_steps)
-    tail = jnp.full((b_sz, tail_len, n),
-                    big if terminated else jnp.float32(0.0))
-    symp = jnp.concatenate([head, sym, tail], axis=1)
-    # overlapped framing WITHOUT per-window slices (a 131k-bit stream has
-    # ~2050 windows — stacking dynamic slices dominated the kernel 10:1):
-    # ceil(Lw/window) shifted whole-array reshapes cover every span
-    n_cat = -(-lw // window)
-    ext_len = (n_win + n_cat) * window
-    symp = jnp.pad(symp, [(0, 0), (0, ext_len - symp.shape[1]), (0, 0)])
-    segs = [
-        symp[:, c * window:(c + n_win) * window].reshape(
-            b_sz, n_win, window, n
-        )
-        for c in range(n_cat)
-    ]
-    wins = jnp.concatenate(segs, axis=2)[:, :, :lw]  # [B, W, Lw, n]
-    spans = jnp.transpose(wins, (2, 3, 1, 0)).reshape(lw, n, n_win * b_sz)
-    bits = run(spans, lw, False, False)  # uniform init, argmin traceback
-    core = bits.reshape(lw, n_win, b_sz)[guard:guard + window]
-    out = jnp.transpose(core, (2, 1, 0)).reshape(b_sz, t_pad)
-    out = out[:, :t_steps].astype(jnp.uint8)
-    if terminated:
-        out = out[:, : t_steps - (k - 1)]
-    return out.reshape(lead + out.shape[-1:])
 
 
 def _viterbi_windowed(llr, polys, k, terminated, window, guard):
@@ -442,16 +344,13 @@ def _conv_soft_coeffs(polys: Tuple[int, ...], k: int):
     )
 
 
-def _conv_soft_windowed(llr, polys, k, terminated, window, guard,
-                        backend="xla"):
+def _conv_soft_windowed(llr, polys, k, terminated, window, guard):
     """Windowed parallel max-log BCJR for the feedforward trellis,
     BATCHED: ``llr [B, T*n]`` → a-posteriori LLRs ``[B, T]``. Same
     window construction and boundary-forcing pads as
     :func:`_viterbi_windowed` (head: known state-0 history as huge
     bit-0 LLRs; tail: flush constraints when terminated), uniform
-    initial metrics converged by the guards. ``backend="pallas"`` runs
-    the generic resident-metric kernel (ops/pallas/bcjr.py) —
-    bit-identical to the scan here (tested)."""
+    initial metrics converged by the guards."""
     tables = _conv_soft_coeffs(polys, k)
     nxt, prev_s, fw0, fw1, bw0, bw1 = tables
     s_count = len(nxt)
@@ -478,25 +377,6 @@ def _conv_soft_windowed(llr, polys, k, terminated, window, guard,
         for c in range(n_cat)
     ]
     wins = jnp.concatenate(segs, axis=2)[:, :, :lw]  # [B, W, Lw, n]
-
-    if backend.startswith("pallas"):
-        from .pallas.bcjr import bcjr_windowed_llr
-
-        spans = jnp.transpose(wins, (2, 3, 1, 0)).reshape(
-            lw, n, n_win * b_sz
-        )
-        n_cols = spans.shape[-1]
-        tile = 512 if n_cols >= 512 else 128
-        pad_cols = -(-n_cols // tile) * tile - n_cols
-        l0 = jnp.pad(spans[:, 0], [(0, 0), (0, pad_cols)])
-        l1 = jnp.pad(spans[:, 1], [(0, 0), (0, pad_cols)])
-        llr_all = bcjr_windowed_llr(
-            l0, l1, lw, tables=tables,
-            interpret=backend == "pallas_interpret",
-        )[:, :n_cols]
-        llr_c = llr_all.reshape(lw, n_win, b_sz)[guard:guard + window]
-        out = jnp.transpose(llr_c, (2, 1, 0)).reshape(b_sz, t_pad)
-        return out[:, :t_steps]
 
     l0 = jnp.transpose(wins[..., 0], (2, 1, 0))  # [Lw, W, B]
     l1 = jnp.transpose(wins[..., 1], (2, 1, 0))
@@ -578,6 +458,8 @@ def conv_decode_soft(
     k = int(constraint)
     if llr.shape[-1] % n:
         raise ValueError(f"LLR count must be a multiple of n = {n}")
+    if backend not in ("auto", "xla"):
+        raise ValueError(f"unknown backend {backend!r}")
     if window:
         # windowed parallel form (the streaming/batched-throughput mode;
         # guard >= ~8 constraint lengths makes the uniform-init windows
@@ -585,17 +467,9 @@ def conv_decode_soft(
         # channels, magnitudes approximate only at window seams)
         lead = llr.shape[:-1]
         flat = llr.reshape((-1, llr.shape[-1]))
-        if backend == "auto":
-            try:
-                platform = jax.devices()[0].platform
-            except Exception:
-                platform = "cpu"
-            backend = "pallas" if platform == "tpu" else "xla"
-        if backend not in ("xla", "pallas", "pallas_interpret"):
-            raise ValueError(f"unknown backend {backend!r}")
         out = _conv_soft_windowed(
             flat, tuple(int(p) for p in polys), k, terminated, window,
-            guard, backend=backend,
+            guard,
         )
         if terminated:
             out = out[:, : out.shape[-1] - (k - 1)]
@@ -711,7 +585,7 @@ def crc_compute(
 
     The register recurrence is linear, so whole blocks advance with two
     f32 matmuls (see :func:`_crc_matrices`) instead of one step per bit —
-    the TPU realization of the checksum every deployed framing layer
+    the data-parallel realization of the checksum every deployed framing layer
     pairs with the FEC in this module. Bits are consumed MSB-first
     (Rocksoft ``refin`` is a byte-local bit permutation — apply it when
     unpacking bytes, cf. :func:`crc32`). ``init`` is folded in by the
@@ -848,11 +722,9 @@ def _conv_ilv(x, branches, cell, state, deinter: bool):
     """Shared Forney (de)interleaver core. The delay structure is
     per-residue-class (position ``t`` belongs to class ``t mod I``, and
     every member of class ``j`` is delayed by the same ``d_j·cell·I``),
-    so instead of one arbitrary 1-D gather — pathological on this
-    backend (a 1200-element gather did not finish compiling in 590 s on
-    chip) — the stream reshapes to ``[T/I, I]`` and each class is ONE
-    static row-slice of the history-extended column: I static slices,
-    the shift-and-add idiom the backend compiles well."""
+    so instead of one arbitrary 1-D gather the stream reshapes to
+    ``[T/I, I]`` and each class is ONE static row-slice of the
+    history-extended column: I static slices, the shift-and-add idiom."""
     x = jnp.asarray(x)
     if x.ndim != 1:
         raise ValueError("conv_(de)interleave takes a flat stream")
@@ -866,9 +738,8 @@ def _conv_ilv(x, branches, cell, state, deinter: bool):
     if state is None:
         state = jnp.zeros((depth,), x.dtype)
     ext = jnp.concatenate([state, x])
-    # one transpose up front so each class is a CONTIGUOUS row — a
-    # per-class strided column slice (ext2[:, j]) is on this backend's
-    # pathological list and hung the compile
+    # one transpose up front so each class is a CONTIGUOUS row rather
+    # than a per-class strided column slice (ext2[:, j])
     ext2 = ext.reshape(-1, i).T  # [I, (depth+T)/I]; class j = row j
     rows = x.shape[0] // i
     d0 = depth // i
@@ -895,8 +766,8 @@ def conv_interleave_block(x, branches: int = 12, cell: int = 17):
     i, m = int(branches), int(cell)
     if n % i:
         raise ValueError(f"length {n} not divisible by branches {i}")
-    # per-class static rolls (free on this backend), not a gather; the
-    # swapaxes keeps each class contiguous (strided slices hang compiles)
+    # per-class static rolls, not a gather; the swapaxes keeps each
+    # class contiguous (no strided slices)
     x2 = jnp.swapaxes(
         x.reshape(x.shape[:-1] + (n // i, i)), -1, -2
     )  # [..., I, n/I]

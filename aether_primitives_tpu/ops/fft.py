@@ -1,4 +1,4 @@
-"""FFT layer: scaling policy, backend protocol, and TPU-native backends.
+"""FFT layer: scaling policy, backend protocol, and backends.
 
 Mirrors the reference's three-part FFT design (reference src/fft.rs):
 
@@ -12,12 +12,12 @@ Mirrors the reference's three-part FFT design (reference src/fft.rs):
   compilation: a plan here is a cache of jitted transforms, so the
   ``vec_fft`` (plan-per-call) vs ``vec_rfft`` (reuse) distinction collapses —
   both hit the jit cache after first trace.
-- Backends: :class:`XlaFft` (XLA's FFT HLO via ``jnp.fft``) and
-  :class:`MatmulFft` — the TPU speed-of-light path: a four-step
-  Cooley-Tukey factorization computed as batched DFT-factor **matmuls on the
-  MXU** with precomputed twiddles, recursing over the second factor.
-  Matmul-based FFT wins on TPU because MXU flops are ~50x VPU flops and the
-  target workloads are all large-batch (SURVEY.md §7 hard part #2).
+- Backends: :class:`XlaFft` (XLA's FFT HLO via ``jnp.fft``; cuFFT on the
+  GPU, the default) and :class:`MatmulFft` — a four-step Cooley-Tukey
+  factorization computed as batched DFT-factor **matmuls** with
+  precomputed twiddles, recursing over the second factor, for devices
+  whose matrix units outrun their vector units on large batches
+  (SURVEY.md §7 hard part #2).
 
 Conventions: forward = ``e^{-i 2π k n / N}`` DFT; backward = unnormalized
 inverse (conjugate kernel), exactly like rustfft.
@@ -86,7 +86,7 @@ Scale.N = Scale("n")
 # --------------------------------------------------------------------------
 
 # Base-case DFT size: a full [n, n] DFT matmul is used once a factor is at
-# most this. 256 keeps the MXU on 128x128 tiles while bounding O(n^2) flops.
+# most this, bounding the O(n^2) flops of a dense DFT.
 _DFT_BASE = 256
 # Above this length a prime (unfactorable) size falls back to the XLA FFT.
 _DENSE_MAX = 4096
@@ -116,56 +116,16 @@ def _twiddle(n1: int, n2: int, sign: int) -> np.ndarray:
     return np.exp(1j * sign * ang).astype(np.complex64)
 
 
-#: Factor table measured on the v5e chip by ``benches/fft_autotune.py``
-#: (marginal-cost timing of every divisor candidate per size, interleaved
-#: repeated rounds; see benches/results_fft_autotune.json for the full
-#: sweep). Only sizes whose winner was CONSISTENT across independent
-#: sweeps are committed — relay timing variance is ±3-4x per round
-#: (DEVNOTES.md), so single-sweep winners are not trustworthy. Applied on
-#: TPU platforms only; the heuristic serves CPU/interpret runs and all
-#: other sizes.
-_V5E_FACTORS: dict = {
-    512: 512,   # DENSE single-stage DFT: 1.75 vs >=2.83 ms @ 32768 rows —
-                # 1.6x every factored form (r3 sweep, kernel-dominated
-                # blocks); also won/near-won both 4M-sample sweeps. The
-                # [512, 512] matmul is lane-perfect end to end; every
-                # factorization leaves a sub-128 minor dim somewhere.
-    1024: 8,    # vs heuristic 32: 2.35 vs 2.87 ms @ 16384 rows; won the
-                # r2 sweep and r3 sweeps 1+3 (r=128 stage-2 lanes)
-    2048: 128,  # vs heuristic 64: faster in every sweep (0.39-0.50 vs 0.48-1.0 ms @ 2048 rows)
-    4096: 32,   # vs heuristic 64: both sweeps' winners (32/16) beat 64 by ~1.5x
-    8192: 32,   # vs heuristic 128: 2x, agreed by both sweeps (0.33 vs 0.62-0.74 ms)
-    # 16384+: heuristic n1=128 confirmed best by two r3 sweeps (14-17 Gsa/s)
-}
-
 #: Per-size stage-1 factor overrides. Consulted before the heuristic;
 #: ``set_factor`` updates it (the autotuner's hook).
 _FACTOR_OVERRIDES: dict = {}
 
-_v5e_applied = False
-
-
-def _apply_platform_table() -> None:
-    global _v5e_applied
-    if _v5e_applied:
-        return
-    _v5e_applied = True
-    try:
-        platform = jax.devices()[0].platform
-    except Exception:
-        return
-    if platform == "tpu":
-        for n, n1 in _V5E_FACTORS.items():
-            _FACTOR_OVERRIDES.setdefault(n, n1)
-
-
 def set_factor(n: int, n1: Optional[int]) -> None:
     """Override the first-stage Cooley-Tukey factor for length ``n``
     (``None`` removes the override). ``n1 == n`` selects the single-stage
-    dense DFT matmul — for small n the [n, n] matmul is lane-perfect on the
-    MXU while any factorization leaves a sub-128 minor dim somewhere, and
-    the O(n^2) flop surplus is cheaper than the layout penalty (measured,
-    benches/results_fft_autotune.json). Used by the on-chip autotuner."""
+    dense DFT matmul — for small n one [n, n] matmul can beat a
+    factorization whose stages leave a small minor dim, despite its
+    O(n^2) flop surplus."""
     if n1 is None:
         _FACTOR_OVERRIDES.pop(int(n), None)
     else:
@@ -177,7 +137,6 @@ def set_factor(n: int, n1: Optional[int]) -> None:
 
 
 def _best_factor(n: int) -> Optional[int]:
-    _apply_platform_table()
     ov = _FACTOR_OVERRIDES.get(n)
     if ov is not None:
         return ov
@@ -188,15 +147,13 @@ def chained_factor(n: int) -> Optional[int]:
     """First-stage factor for FFTs embedded in chained spectral
     compositions (fft -> elementwise -> ifft, e.g. the correlator).
 
-    Measured (v5e, interleaved single-session A/B at 512): the dense
-    single-matmul table entry wins STANDALONE batched FFTs by ~1.3x, but
-    inside a chain the FACTORED form wins by ~1.3x — XLA fuses the
-    factored stages with the neighboring elementwise work where the
-    dense [n, n] HIGHEST matmuls stay fusion barriers. Returns the
+    A dense single-matmul override can win STANDALONE batched FFTs while
+    the FACTORED form wins inside a chain — XLA fuses the factored stages
+    with the neighboring elementwise work where the dense [n, n] HIGHEST
+    matmuls stay fusion barriers. Returns the
     heuristic factor when the table entry is dense, else None (use the
     table). Pass the result as ``mm_fft(..., first_factor=...)``.
     """
-    _apply_platform_table()
     ov = _FACTOR_OVERRIDES.get(n)
     if ov is not None and ov >= n:
         return _heuristic_factor(n)
@@ -207,8 +164,8 @@ def chained_factor(n: int) -> Optional[int]:
 def _heuristic_factor(n: int) -> Optional[int]:
     """Pick n1 | n for the first Cooley-Tukey stage.
 
-    Measured on v5e (DEVNOTES.md): *balanced* factors win decisively —
-    2048 as 64x32 runs ~5x faster than 128x16. Heuristic: the smallest
+    *Balanced* factors keep both stages' contractions deep. Heuristic: the
+    smallest
     multiple-of-8 divisor >= ceil(sqrt(n)) (so both stages stay near
     sqrt(n)), capped at 128; fall back to the largest divisor <= 128.
     Sizes above 16384 have no balanced divisor <= 128 — the autotuned
@@ -231,18 +188,19 @@ def _heuristic_factor(n: int) -> Optional[int]:
 
 def mm_fft(x: jnp.ndarray, sign: int = -1,
            first_factor: Optional[int] = None) -> jnp.ndarray:
-    """Batched DFT along the last axis via MXU matmuls (four-step FFT).
+    """Batched DFT along the last axis via matmuls (four-step FFT).
 
     Recursive Cooley-Tukey: with n = n1*n2 and input index n = n1_idx*n2 +
     n2_idx, output index k = k1 + n1*k2:
 
-      1. contract the n1 axis with a DFT_{n1} matrix (MXU matmul),
+      1. contract the n1 axis with a DFT_{n1} matrix (matmul),
       2. multiply by twiddles W_N^{n2 k1},
       3. recurse: DFT_{n2} along the last axis,
       4. transpose (k1, k2) -> (k2, k1) and flatten.
 
     All matrices are f64-precomputed complex64 constants; matmuls run at
-    ``Precision.HIGHEST`` so f32 accuracy survives the MXU.
+    ``Precision.HIGHEST`` so f32 accuracy survives reduced-precision
+    matrix units (bf16 passes, TF32).
     ``first_factor`` overrides the top-level stage-1 factor only (see
     :func:`chained_factor`); the recursion keeps the table.
     """
@@ -287,7 +245,7 @@ def _decim_stage2(n1: int, n2: int, dec: int, sign: int):
     positions (zeros elsewhere). Together they realize
     ``B[k1,k2] = sum_{m2} A[k1, dec*m2] * W_N^{m2 k1} * W_{n2}^{m2 k2}``
     as one dense elementwise multiply + one dense matmul — no strided
-    memory access (strided lane slicing is pathological on TPU).
+    memory access.
     """
     tw = _twiddle(n1, n2, sign)  # [n1, n2]
     f2 = _dft_matrix(n2, sign)  # [n2, n2]
@@ -324,14 +282,14 @@ def mm_fft_decimate(x: jnp.ndarray, dec: int, sign: int = -1) -> jnp.ndarray:
     """DFT of the ``dec``-decimated last axis, without ever materializing
     the decimated signal: ``mm_fft_decimate(x, d) == mm_fft(x[..., ::d])``.
 
-    The polyphase trick behind the TPU receive chain: with output length
+    The polyphase trick behind the fused receive chain: with output length
     ``N = x.shape[-1]/dec = n1*n2``, decimated sample ``m = m1*n2 + m2``
     lives at full-rate index ``j = m1*(n2*dec) + dec*m2`` — so the
     *major*-axis reshape ``[..., n1, n2*dec]`` already isolates ``m1``, the
     first-stage DFT matmul is untouched, and phase selection folds into the
     second-stage matrices as a zero pattern (one extra ``dec`` factor of
     flops on the cheap stage). Every access is dense; the strided gather
-    that makes ``x[..., ::d]`` slow on TPU never happens.
+    of ``x[..., ::d]`` never happens.
 
     Requires ``n1 = _best_factor(N)`` to exist and ``n2*dec <= 256``; falls
     back to slice-then-FFT otherwise.
@@ -441,7 +399,7 @@ class Fft:
 
 
 class MatmulFft(Fft):
-    """Four-step MXU matmul FFT plan (see :func:`mm_fft`)."""
+    """Four-step matmul FFT plan (see :func:`mm_fft`)."""
 
     def _raw(self, x, sign):
         return mm_fft(x, sign)
@@ -459,21 +417,16 @@ _plan_cache: dict = {}
 
 
 def default_backend() -> str:
-    """Matmul FFT on TPU (MXU-bound, fastest); XLA FFT elsewhere.
-
-    Overridable with ``AETHER_FFT_BACKEND=matmul|xla`` (the analog of the
-    reference's swappable-backend feature flags, Cargo.toml:39-46).
+    """XLA's FFT (cuFFT on the GPU) unless overridden with
+    ``AETHER_FFT_BACKEND=matmul|xla`` (the analog of the reference's
+    swappable-backend feature flags, Cargo.toml:39-46).
     """
     import os
 
     env = os.environ.get("AETHER_FFT_BACKEND")
     if env in _BACKENDS:
         return env
-    try:
-        platform = jax.devices()[0].platform
-    except Exception:
-        platform = "cpu"
-    return "matmul" if platform == "tpu" else "xla"
+    return "xla"
 
 
 def plan(n: int, backend: Optional[str] = None) -> Fft:

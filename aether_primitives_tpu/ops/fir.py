@@ -4,15 +4,13 @@ The reference's ``src/fir.rs`` is a non-functional stub (SURVEY.md §2 #7);
 its only *working* correlator is the freq-domain composition in its benches
 (``vec_rfft -> vec_mul(conj) -> vec_rifft``, reference benches/benches.rs:
 410-417), and its README lists FIR and freq-domain convolution as TODO
-(reference README.md:95-96). This module supplies the finished capability,
-TPU-first:
+(reference README.md:95-96). This module supplies the finished capability:
 
 - :func:`fir_filter` / :func:`fir_filter_decimate` — causal time-domain
   FIR as a shift-and-add over K static stride-1 slices of split re/im
-  planes (fused VPU FMA chain). ``lax.conv`` is deliberately not used: a
-  batch-1/channel-1 conv lowers catastrophically on the TPU backend
-  (DEVNOTES.md), and strided slicing is equally pathological — decimation
-  instead fuses into the FFT (:func:`..fft.mm_fft_decimate`).
+  planes (a fused multiply-add chain). ``lax.conv`` is deliberately not
+  used for batch-1/channel-1 filtering, and decimation can instead fuse
+  into the FFT (:func:`..fft.mm_fft_decimate`).
 - :func:`fir_filter_os` — overlap-save block convolution through the FFT
   backend: for long blocks the cost is two FFTs + one element-wise multiply
   per block, the classic O(log L) per sample path. This is also the form
@@ -106,9 +104,9 @@ def fir_filter(x, taps) -> jnp.ndarray:
     """Causal FIR: ``y[n] = sum_k taps[k] x[n-k]``, output same length as x.
 
     Realized as :func:`fir_filter_decimate` with factor 1 — a shift-and-add
-    over K static stride-1 slices on split re/im planes (see that function's
-    TPU note on why ``lax.conv`` is avoided). Batched over leading axes.
-    For long tap counts or TPU deployment prefer :func:`fir_filter_os`.
+    over K static stride-1 slices on split re/im planes (see that
+    function's note on ``lax.conv``). Batched over leading axes.
+    For long tap counts prefer :func:`fir_filter_os`.
     """
     return fir_filter_decimate(x, taps, 1)
 
@@ -116,7 +114,7 @@ def fir_filter(x, taps) -> jnp.ndarray:
 def fir_filter_decimate(x, taps, factor: int, padding: str = "causal") -> jnp.ndarray:
     """Fused causal FIR + decimation: ``y[m] = sum_k taps[k] x[m*factor - k]``.
 
-    The polyphase identity the TPU chain leans on: filtering then keeping
+    The polyphase identity the fused chain leans on: filtering then keeping
     every ``factor``-th sample computes (and discards) ``factor-1`` of every
     ``factor`` outputs — a strided convolution computes only the survivors,
     cutting FIR work by ``factor`` with bit-identical results to
@@ -127,11 +125,11 @@ def fir_filter_decimate(x, taps, factor: int, padding: str = "causal") -> jnp.nd
     ``taps-1``-sample history (the sharded halo path) and emits
     ``(n - taps + 1) / factor`` outputs aligned to the first fresh sample.
 
-    Implementation note (TPU): this is a **shift-and-add** over K static
+    Implementation note: this is a **shift-and-add** over K static
     strided slices, not ``lax.conv`` — a batch-1/channel-1 strided conv
-    lowers catastrophically on the TPU backend (minutes of compile, scalar
-    code), while K fused multiply-adds on lane-contiguous slices stay on
-    the VPU at full rate and fuse into one kernel.
+    is a poor fit for convolution libraries built for many channels,
+    while K multiply-adds on contiguous slices are plain elementwise
+    work that XLA can fuse.
     """
     x = _as_c64(x)
     taps = _as_c64(taps)
@@ -193,8 +191,8 @@ def fir_filter_os(
 
     Any ``block_len >= K-1`` works (the tail block is zero-padded and the
     output sliced back); the default picks a power-of-two near
-    ``max(1024, 8*K)``. All blocks are processed as one batched FFT — the
-    TPU sweet spot — so throughput is the batched-FFT rate.
+    ``max(1024, 8*K)``. All blocks are processed as one batched FFT, so
+    throughput is the batched-FFT rate.
     """
     x = _as_c64(x)
     taps = _as_c64(taps)
@@ -268,7 +266,7 @@ def fir_filter_os_decimate(
     ``fir_filter_decimate(x, taps, factor)`` but at the overlap-save cost
     model, with the inverse transform shrunk by ``factor``.
 
-    The TPU formulation (contrast :func:`fir_decimate_fft`, whose output is
+    The dense formulation (contrast :func:`fir_decimate_fft`, whose output is
     the *frame spectrum* for chains that FFT right after): keeping every
     ``factor``-th sample of the block's circular convolution is a spectral
     fold — with ``M = fft_len / factor``,
@@ -395,33 +393,18 @@ def _fused_stage_matrices(
     return f1.astype(np.complex64), g.astype(np.complex64)
 
 
-#: Hardware-measured first-stage sizes for the fused op, keyed by
-#: ``(dec, fft_len)`` — applied on TPU when no explicit override is given.
-#: v5e whole-chain sweep (benches/n1_sweep.py, two independent interleaved
-#: sweeps, min-of-rounds): n1=16 won or tied both (0.997/1.026 ms per
-#: 4M block) vs the heuristic's 128 (1.154 ms). FLOPs are symmetric in
-#: ``n1 <-> r = fft_len/n1`` (total cmacs = ``nsym*span*(n1+r)``), so the
-#: win is layout: stage 2's output ``[n1, ..., r]`` — the tensor the sign
-#: demod streams — has an ``r``-lane minor dim, and r=128 keeps every
-#: register full where the heuristic's r=16 padded them 8x. 256 and 8
-#: measured consistently worse (tiny r / shallow stage-1 contraction).
-_TPU_STAGE_N1: dict = {(4, 2048): 16}
-
-
 def _fused_stage_n1(
     dec: int, fft_len: int, override: Optional[int] = None
 ) -> Optional[int]:
     """First-stage size for the two-einsum path.
 
     Resolution order: explicit ``override`` (validated), then the
-    hardware-measured ``_TPU_STAGE_N1`` table (TPU only), then the
     heuristic — the largest ``n1 | fft_len`` with ``n1 <= 128`` whose
     G' tensor (``span * fft_len / n1`` entries) stays under ~4 MB.
     ``override`` wins when given — the chain exposes it as
     ``RxChainConfig.stage_n1`` because the choice trades stage-1 contraction
-    depth against stage-2's minor-dim lane utilisation (``r = fft_len/n1``
-    lanes of 128) and total FLOPs; the sweet spot is hardware-measured
-    (``benches/n1_sweep.py``), not derivable from the heuristic.
+    depth against stage-2's minor-dim layout and total FLOPs, which only
+    a measurement on the device can settle.
     """
     span = dec * fft_len
     if override is not None:
@@ -435,13 +418,6 @@ def _fused_stage_n1(
         if span * (fft_len // n1) * 8 > 64 << 20:
             raise ValueError(f"stage_n1 {n1} implies a >64 MB G' tensor")
         return n1
-    tuned = _TPU_STAGE_N1.get((dec, fft_len))
-    if tuned is not None:
-        try:
-            if jax.devices()[0].platform == "tpu":
-                return tuned
-        except Exception:
-            pass
     for n1 in range(min(fft_len, 128), 0, -1):
         if fft_len % n1 == 0:
             if span * (fft_len // n1) * 8 <= 4 << 20:
@@ -510,12 +486,12 @@ def fir_decimate_fft(
     span-point forward FFT per frame plus O(K * fft_len) fix-up flops:
 
     1. frame the input at full rate: ``span = dec * fft_len`` samples/frame;
-    2. span-point forward FFT (matmul backend: pure MXU), multiply by the
+    2. span-point forward FFT (matmul backend: pure matmuls), multiply by the
        precomputed tap spectrum ``Hs`` — the *circular* convolution of each
        frame in the frequency domain;
     3. **decimate by spectral folding**: decimation in time is aliasing in
        frequency, ``Z[k] = (1/dec) * sum_p Yc[k + p*fft_len]`` — a dense
-       reshape-and-sum, never a strided slice (pathological on TPU) and
+       reshape-and-sum, never a strided slice and
        never an inverse transform;
     4. subtract the circular-wrap error: it lives only in the first ``K-1``
        samples of each frame and is a linear function of the current and
@@ -536,7 +512,7 @@ def fir_decimate_fft(
     the ``k1`` stage axis LEADING — natural bin ``k = k1 + n1*d`` — and
     the wrap correction applied in that layout. Leading ``k1`` makes it
     the native batch dimension of the second (batched-GEMM) einsum, so
-    XLA inserts no hidden transposes (measured ~17% whole-chain win), and
+    XLA inserts no hidden transposes, and
     the caller defers natural-order reordering to its (much smaller)
     post-demod tensor.
     """
@@ -555,9 +531,8 @@ def fir_decimate_fft(
 
     hs, cm = _fused_rx_matrices(taps.tobytes(), k, dec, fft_len)
     backend = fft_backend or _fft.default_backend()
-    # HIGHEST (full-f32 MXU emulation) keeps the fused path at ~-133 dB RMS
-    # vs f64; callers with relaxed accuracy needs may pass Precision.HIGH
-    # (half the MXU passes) — measured trade-off in DEVNOTES.md
+    # HIGHEST (full f32) keeps the fused path near -133 dB RMS vs f64;
+    # callers with relaxed accuracy needs may pass Precision.HIGH
     prec = jax.lax.Precision.HIGHEST if precision is None else precision
     n1 = _fused_stage_n1(dec, fft_len, stage_n1) if backend == "matmul" else None
     if n1 is not None:
@@ -644,15 +619,11 @@ def fir_decimate_fft_planes(
     (4 per stage), and returns ``(zr, zi)`` planes in the ``[n1, ...,
     nsym, r]`` layout, unscaled, wrap-corrected.
 
-    Rationale vs measurement: the idea was to delete the complex64
-    merge/extract passes around the hot loop on boundary-safe runtimes.
-    On the v5e chip it measured ~8% SLOWER than merge + complex einsums
-    (1.20 vs 1.11 ms/block whole-chain): XLA's complex GEMM shares each
-    operand load across the four real products, while four separate real
-    einsums re-read their operands (2x operand traffic), outweighing the
-    saved packing passes. Kept as an API for plane-native pipelines and
-    as the measured record of the trade-off (DEVNOTES.md); the RX chain
-    uses the complex path.
+    It deletes the complex64 merge/extract passes around the hot loop,
+    at the price of four separate real einsums that each re-read their
+    operands (a complex GEMM shares each operand load across the four
+    real products). Kept as an API for plane-native pipelines; the RX
+    chain uses the complex path.
     """
     xr = jnp.asarray(xr, jnp.float32)
     xi = jnp.asarray(xi, jnp.float32)
@@ -864,12 +835,10 @@ def matched_filter(
     when ``ref`` appears at ``offset`` (the causal end-of-pattern
     convention). Unlike :func:`correlate` this is linear, streams over
     blocks, and shards with a ``M-1`` halo — the production correlator for
-    long captures (BASELINE config: "freq-domain correlation via
-    overlap-save").
+    long captures.
     """
     if isinstance(ref, (np.ndarray, list, tuple)):
         # host references stay numpy so the taps embed as trace constants
-        # (no eager complex device arrays — DEVNOTES.md)
         taps = np.conj(np.asarray(ref, dtype=np.complex64))[..., ::-1]
     else:
         taps = jnp.conj(jnp.asarray(ref, dtype=cf32))[..., ::-1]
@@ -900,8 +869,8 @@ def correlate(x, ref, fft_backend: Optional[str] = None) -> jnp.ndarray:
     if b == "matmul":
         # chained composition: prefer the factored stage over a dense
         # table entry — the factored FFT fuses with the spectrum multiply
-        # where the dense [n, n] matmul is a fusion barrier (measured
-        # ~1.3x at n=512; ops/fft.py:chained_factor)
+        # where the dense [n, n] matmul is a fusion barrier
+        # (ops/fft.py:chained_factor)
         return _correlate_mm(n, _fft.chained_factor(n))(x, ref)
     plan = _fft.plan(n, fft_backend)
     spec = plan.fwd(x, Scale.NONE) * jnp.conj(plan.fwd(ref, Scale.NONE))
@@ -910,8 +879,8 @@ def correlate(x, ref, fft_backend: Optional[str] = None) -> jnp.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _correlate_mm(n: int, first_factor):
-    """Cached jitted matmul-FFT correlator core (jit = eager-call safety
-    on backends where per-op dispatch is pathological)."""
+    """Cached jitted matmul-FFT correlator core (one dispatch per call,
+    not one per op)."""
 
     @jax.jit
     def f(x, ref):

@@ -6,7 +6,7 @@ Completes the analog-front-end story around the reference's modem chain
 modulator's output straight to the demodulator, reference
 examples/modem.rs:23-31; a real receiver first has to center, balance, and
 level the capture). Every op here is feedforward and batched — elementwise
-VPU math plus reductions, fully fused by XLA; the one sequential element
+math plus reductions, fully fused by XLA; the one sequential element
 (AGC gain smoothing across blocks) is a ``lax.scan`` carrying a single
 scalar, the compiler-friendly form of the classic feedback loop.
 

@@ -1,20 +1,20 @@
-"""IIR filtering, TPU-native — plus classic recursive-filter designs.
+"""IIR filtering for parallel devices — plus classic recursive-filter
+designs.
 
 Recursive filters look hostile to a parallel machine (each output feeds
-the next). Two parallel formulations exist; both were built and
-MEASURED (DEVNOTES):
+the next). Two parallel formulations exist; both were built:
 
 - associative scan over affine state maps (``s' = M s + v x`` composes
-  associatively): exact in theory, but on chip the f32 log-tree loses
-  precision over long blocks (−41 dB at 1M samples) and compiles slowly
-  — rejected;
+  associatively): exact in theory, but the f32 log-tree loses
+  precision over long blocks and compiles slowly — rejected;
 - **truncated impulse response** (production): because ``M`` is constant,
   the cumulative maps are just ``M^t`` — the biquad IS a convolution
   with a geometrically decaying kernel. Truncating where the envelope
   falls below 1e-7 (−140 dB, a few hundred taps for typical designs)
   turns the IIR into :func:`~.fir.fir_filter_os` running at the
   batched-FFT rate, with the truncation + f32 FFT floor as the
-  only error (measured −106 dB RMS vs scipy's exact recursion) and exact streaming state carried
+  only error (tested against scipy's exact recursion) and exact
+  streaming state carried
   by two small kernel dot products.
 
 Designs are host-side f64 (like :mod:`.firdes`): Butterworth low/high

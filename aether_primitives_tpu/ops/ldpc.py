@@ -14,11 +14,12 @@ dictated by the hardware:
 - **Decoding** is normalized min-sum belief propagation with the
   messages held as a DENSE ``[m, n]`` plane masked by the parity-check
   support. Sparse edge lists (the CPU/ASIC idiom) become gathers and
-  segment reductions — pathological on this backend; the dense plane
+  segment reductions that break XLA's fusion; the dense plane
   makes every iteration two masked row/column reductions and a few
   elementwise ops, all batched over codewords and fused by XLA. At
   LDPC sizes (n ~ 10^3, m ~ n/2) the dense plane is ~1 MB/codeword —
-  cheap against HBM, and the batch dimension keeps the VPU full.
+  cheap against device memory, and the batch dimension keeps the device
+  full.
 
 Code construction: :func:`make_regular_ldpc` builds a Gallager
 (dv, dc)-regular ensemble with banded structure + fixed-seed column
@@ -146,7 +147,7 @@ def qc_expand(base: np.ndarray, z: int) -> np.ndarray:
     ``base[i, j] == -1`` becomes a ``[z, z]`` zero block; ``s >= 0``
     becomes the identity cyclically right-shifted by ``s`` columns —
     i.e. block-row ``i`` checks bit ``(t + s) mod z`` of block-column
-    ``j``. The block-circulant structure is exactly the TPU-friendly
+    ``j``. The block-circulant structure is exactly the dense-friendly
     form: expansion is ``np.roll`` of an identity (host-side, once), and
     the decoder's dense masked plane never needs gathers.
     """
@@ -274,9 +275,7 @@ def qc_ldpc_decode(
 
     For the 802.11n n=648 code the dense plane holds 324*648 = 210k
     entries per codeword where only 88 edges * 27 = 2376 messages exist —
-    the dense decoder is ~88x redundant HBM traffic and measured 7.3 ms
-    per 25-iteration batch-64 decode vs 0.15 ms here (~48x; DEVNOTES
-    round 3). Runs the same min-sum update over the edge tensor with
+    the dense decoder moves ~88x redundant memory traffic. Runs the same min-sum update over the edge tensor with
     circulant alignment as static per-edge rolls. Same LLR convention
     and ``(hard, syndrome_ok)`` contract as :func:`ldpc_decode`; both
     converge to the same codeword on correctable channels (f32
@@ -296,7 +295,7 @@ def qc_ldpc_decode(
     if lam.shape[-1] != n:
         raise ValueError(f"LLR length {lam.shape[-1]} != code length {n}")
     bshape = lam.shape[:-1]
-    # internal layout: [nb, z, B] — batch on lanes
+    # internal layout: [nb, z, B] — batch minor
     lam_v = jnp.moveaxis(lam.reshape(bshape + (nb, z)), tuple(range(len(bshape))),
                          tuple(range(-len(bshape), 0)))  # [nb, z, B...]
     e_count = rows_np.shape[0]
@@ -373,7 +372,8 @@ def qc_ldpc_decode(
 
 def ldpc_encode(bits, g) -> jnp.ndarray:
     """Encode ``[..., k]`` message bits to ``[..., n]`` codewords: one
-    f32 matmul mod 2 (exact — row sums ≤ k < 2^24). MXU-batched."""
+    f32 matmul mod 2 (exact — 0/1 operands and row sums ≤ k < 2^24, so
+    TF32 inputs lose nothing)."""
     u = jnp.asarray(bits).astype(jnp.float32) % 2
     gm = jnp.asarray(np.asarray(g, np.float32))
     return jnp.mod(u @ gm, 2.0).astype(jnp.uint8)

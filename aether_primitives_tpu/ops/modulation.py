@@ -1,6 +1,6 @@
 """PSK modulation and hard demodulation.
 
-TPU-native re-design of the reference's ``Modulation`` trait
+Data-parallel re-design of the reference's ``Modulation`` trait
 (reference src/modulation.rs:94-149): a modulation is a constellation
 *table*; modulation is bit-pack + gather, hard demod is a vectorized
 argmin over constellation distances — both batched over arbitrary leading
@@ -43,8 +43,7 @@ def _interleave_bits(planes) -> jnp.ndarray:
     tensor.
 
     ``jnp.stack(planes, -1)`` creates a ``[..., n, bps]`` uint8 intermediate
-    whose tiny minor axis lane-pads catastrophically on TPU (measured: the
-    QPSK demod dominated the whole RX chain). Instead the ``bps`` bytes of
+    whose tiny minor axis pads badly on vector hardware. Instead the ``bps`` bytes of
     each symbol are packed arithmetically into one wide integer
     (little-endian: plane j -> byte j) and ``bitcast_convert_type`` down to
     uint8 — a free reinterpretation, because byte ``j`` of a little-endian
@@ -140,8 +139,8 @@ class Modulation:
         Distance is ``|s - c|^2`` expanded as ``|s|^2 - 2 Re(s c*) + |c|^2``;
         since ``|s|^2`` is constant per symbol the argmin reduces to an
         argmax of ``Re(s) Re(c) + Im(s) Im(c) - |c|^2 / 2`` — a tiny real
-        matmul against the constellation, which XLA fuses or MXUs as batch
-        size demands.
+        matmul against the constellation, which XLA fuses or hands to the
+        matrix units as batch size demands.
         """
         s = jnp.asarray(symbols, dtype=cf32)
         if self._sign_fast:
@@ -162,7 +161,7 @@ class Modulation:
         """Closed-form nearest-neighbor demod for the generic Gray tables.
 
         The generic constellations are axis-aligned, so the argmin collapses
-        to sign tests (the TPU analog of the reference's hand-unrolled QPSK
+        to sign tests (the data-parallel analog of the reference's hand-unrolled QPSK
         demod that "cuts demod time by roughly 20%", src/modulation.rs:31-56
         — here it removes the whole distance tensor):
 

@@ -1,6 +1,6 @@
 """AWGN generation and injection.
 
-TPU-native equivalent of the reference's ``Awgn`` sampler
+Data-parallel equivalent of the reference's ``Awgn`` sampler
 (reference src/noise.rs): seeded, deterministic complex white Gaussian
 noise with per-component std ``sqrt(power)``.
 

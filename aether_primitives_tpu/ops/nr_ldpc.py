@@ -1,6 +1,6 @@
 """5G-NR-style QC-LDPC: lifting, structured encoding, rate matching, and
-edge-message decoding (VERDICT r3 item 3 — the declared flooding-decoder
-fast path extended along the dominant modern standard's machinery).
+edge-message decoding (the flooding-decoder fast path extended along the
+dominant modern standard's machinery).
 
 What is implemented EXACTLY per TS 38.212 (the algorithmic spec):
 
@@ -27,8 +27,8 @@ What is implemented EXACTLY per TS 38.212 (the algorithmic spec):
   three of its terms cancel to one cyclic shift), extension parity as
   single-row XORs — ``O(edges)`` cyclic rolls, no dense generator;
 - **decoding**: the framework's QC edge-message normalized min-sum
-  (:func:`~aether_primitives_tpu.ops.ldpc.qc_ldpc_decode` — measured 48x
-  over the dense plane on chip, DEVNOTES round 3), batched over frames.
+  (:func:`~aether_primitives_tpu.ops.ldpc.qc_ldpc_decode`), batched over
+  frames.
 
 What is NOT the 3GPP standard: the **shift coefficients**. TS 38.212
 Tables 5.3.2-2/-3 are ~1500 tabulated integers per base graph (8 shift

@@ -8,7 +8,7 @@ for its control channels. The reference crate stops at uncoded PSK
 surface built on the same conventions (LLR sign: positive = bit 0,
 uint8 bit planes, batch-first jittable graphs).
 
-TPU-first realizations:
+Realizations:
 
 - :func:`polar_encode` — the Arikan transform ``x = u · F^{⊗n}`` over
   GF(2) is ``log2(N)`` butterfly stages; each stage is one reshape + XOR
@@ -28,9 +28,8 @@ TPU-first realizations:
   small vectorized nodes (``f`` = sign·min, ``g`` = add/subtract,
   partial-sum XOR), every node batched over ``[batch, half]``. Frozen
   leaves are resolved at trace time from the static mask — no dynamic
-  control flow anywhere. Throughput scales with batch (the turbo/BCJR
-  finding, DEVNOTES: scan/serial-latency-bound kernels amortize over
-  the batch axis, not the block axis).
+  control flow anywhere. Throughput scales with batch: serial-latency-
+  bound kernels amortize over the batch axis, not the block axis.
 - :func:`polar_decode_list` — CRC-aided successive-cancellation list
   (CA-SCL) decoding, the production 5G decoder, as a node-classified
   fast-SSCL: Rate-0 / REP / Rate-1 / SPC subtrees resolve in closed form
@@ -40,11 +39,8 @@ TPU-first realizations:
   / 128 serial ``top_k`` forks to 49 / 82. Every list-axis move
   (genealogy gathers, flip updates, reliability sorting) is expressed as
   one-hot multiply-reduces and iterative min extraction — NO
-  ``take_along_axis``, no ``dynamic_update_slice``, no lane-axis
-  ``top_k``, each of which is a measured ~45 µs–3 ms fusion-breaker on
-  this backend (chip A/B: 16.8x at batch 64, 195x at batch 1024 over
-  leaf-wise; 427 Mbit/s info — faster than flooding BP at better BLER;
-  benches/results_scl_fast_r5.json).
+  ``take_along_axis``, no ``dynamic_update_slice``, no minor-axis
+  ``top_k``, each of which breaks XLA's fusion around it.
 
 Sizes: power-of-two ``N``; tests cover N ≤ 512. The unrolled trace is
 O(N) nodes — for very large N prefer batching many codewords of
@@ -180,15 +176,13 @@ def polar_decode_bp(
     """Belief-propagation decode of ``[..., N]`` channel LLRs over the
     polar factor graph: ``(info_bits [..., K], ok [...])``.
 
-    The THROUGHPUT decoder (VERDICT r3 item 4 — the round-3 turbo study's
-    conclusion applied to polar): SC/SCL is serial over bit indices by
+    The THROUGHPUT decoder: SC/SCL is serial over bit indices by
     construction — ``2N-1`` tiny sequential node evaluations, each a
-    dispatch-floor-bound step on this backend, plus a ``top_k`` per
-    information leaf for the list variant — whereas BP floods the whole
-    ``(log2 N + 1) x N`` message trellis with ``2 log2 N`` full-plane
-    min-sum updates per iteration, every one batched over codewords.
-    Exactly the LDPC min-sum shape that measured 48x over its own serial
-    alternatives (DEVNOTES round 3).
+    dispatch-bound step, plus a ``top_k`` per information leaf for the
+    list variant — whereas BP floods the whole ``(log2 N + 1) x N``
+    message trellis with ``2 log2 N`` full-plane min-sum updates per
+    iteration, every one batched over codewords: the LDPC min-sum
+    shape.
 
     Graph: column 0 = the u (information) side, column ``n = log2 N`` =
     the x (channel) side, matching :func:`polar_encode`'s natural-order
@@ -213,19 +207,16 @@ def polar_decode_bp(
 
     Accuracy trade-off: plain BP on the polar graph gives up ~0.5-1 dB
     vs CA-SCL at short block lengths (no CRC aid, no list) — this is the
-    documented price of the ~two-orders-of-magnitude throughput gap;
+    documented price of the throughput gap;
     use :func:`polar_decode_list` when the link budget needs every dB
     and :func:`polar_decode_bp` when the decoder must keep up with a
     wideband stream.
 
-    Carry layout (round-4 A/B, ``benches/polar_layout_ab.py``): the
-    columns ride the scan carry as a TUPLE of ``stages+1`` separate
-    ``[batch, N]`` planes, not one stacked ``[stages+1, batch, N]``
-    tensor. The stacked form turns every column write into a
-    ``dynamic_update_slice`` over the whole trellis; on chip the tuple
-    layout measured 1.79x faster at batch 64 (51.9 -> 93.0 info
-    Mbit/s) and 1.42x at batch 1024 (56.8 -> 80.4), bit-identical
-    (``results_polar_layout_r4.json``).
+    Carry layout (A/B: ``benches/polar_layout_ab.py``): the columns ride
+    the scan carry as a TUPLE of ``stages+1`` separate ``[batch, N]``
+    planes, not one stacked ``[stages+1, batch, N]`` tensor. The stacked
+    form turns every column write into a ``dynamic_update_slice`` over
+    the whole trellis; the two are bit-identical.
     """
     mask = _check_mask(info_mask)
     n = mask.shape[0]
@@ -439,7 +430,7 @@ def polar_decode_list(llrs, info_mask, list_size: int = 8):
 
     Node-classified fast SCL (the Fast-SSCL decomposition): instead of
     descending to all ``N`` leaves (2N−1 node visits, K serial ``top_k``
-    forks — the round-4 1.3 Mbit/s floor), special subtrees resolve in
+    forks), special subtrees resolve in
     closed form at the subtree root, each EXACTLY equivalent to leaf-wise
     SCL under the min-sum path metric (verified path-for-path against
     :func:`_decode_list_leafwise` in tests/test_polar.py):
@@ -487,11 +478,9 @@ def polar_decode_list(llrs, info_mask, list_size: int = 8):
     # ``P [batch, L, L]`` with ``P[b, l, k] = 1`` iff post-node path l
     # descends from pre-node path k, u bits ``[batch, L, nb]`` as exact
     # {0, 1} f32). EVERYTHING on the list axis is one-hot multiply-reduce:
-    # on this backend a take_along_axis lowers to a fusion-breaking
-    # ~45 µs custom gather regardless of size (the profiled cost of the
-    # whole decoder was ~550 such gathers + 150 dynamic-update-slices,
-    # DEVNOTES round 5), while these 8-term reduces fuse with their
-    # neighbors like any elementwise op.
+    # a take_along_axis lowers to a fusion-breaking gather regardless of
+    # size, while these 8-term reduces fuse with their neighbors like any
+    # elementwise op.
     trail: List[Tuple[jnp.ndarray, jnp.ndarray]] = []
     eyeL = jnp.broadcast_to(jnp.eye(L, dtype=jnp.float32), (batch, L, L))
     iota_L = jnp.arange(L, dtype=jnp.int32)
@@ -524,9 +513,8 @@ def polar_decode_list(llrs, info_mask, list_size: int = 8):
     def fork(pen_alt, base_add=None):
         """Prune 2L → L: keep-branch (optionally + base_add) vs
         alternative (+ pen_alt). Returns (one-hot parents, took_alt f32).
-        The top_k runs on the tiny ``[batch, 2L]`` plane (lane-axis top_k
-        at that size is ~2 µs; the big lane-axis top_k this decoder once
-        used was ~3 ms per call)."""
+        The top_k runs on the tiny ``[batch, 2L]`` plane, never on a wide
+        minor axis."""
         pm = state["pm"]
         keep = pm if base_add is None else pm + base_add
         pm2 = jnp.concatenate([keep, pm + pen_alt], axis=1)
@@ -553,10 +541,9 @@ def polar_decode_list(llrs, info_mask, list_size: int = 8):
         (ascending values ``[..., kk]``, float positions ``[..., kk]``).
 
         Iterative min extraction with an iota tie-break instead of
-        ``lax.top_k``: TopK over the lane axis lowers to a full sort
-        (~3 ms per call at [1024, 8, 256] — measured to be ~ALL of the
-        decoder's runtime), and even argmin costs 30x a plain min there;
-        kk rounds of min / where-mask are ordinary fusable reductions."""
+        ``lax.top_k``: TopK over the minor axis can lower to a full sort,
+        while kk rounds of min / where-mask are ordinary fusable
+        reductions."""
         cur = mag
         m = mag.shape[-1]
         iota = jnp.arange(m, dtype=jnp.float32)

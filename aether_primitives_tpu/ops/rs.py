@@ -7,7 +7,7 @@ reference has no channel coding; this extends the capability surface the
 same way those modules did).
 
 CPU/ASIC Reed–Solomon lives on 256-entry log/antilog table lookups —
-gathers, the one primitive this backend punishes. The TPU-native design
+gathers, which break XLA's fusion on accelerators. This design
 eliminates every table:
 
 - A GF(2^8) element is its 8 polynomial coefficients — one bit-plane
@@ -454,7 +454,7 @@ class ReedSolomon:
         n_corrected)`` like :meth:`decode` (``n_corrected`` counts errors +
         erasures actually corrected).
 
-        TPU form: the erasure locator builds in one ``lax.scan`` over
+        Data-parallel form: the erasure locator builds in one ``lax.scan`` over
         positions (masked companion-shift products — no data-dependent
         shapes), Berlekamp-Massey runs all ``n-k`` iterations with a
         ``r >= rho`` enable flag instead of a dynamic start, and the

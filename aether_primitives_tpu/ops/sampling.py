@@ -1,6 +1,6 @@
 """Resampling: linear interpolation upsampling and decimating downsampling.
 
-TPU-native re-design of reference ``src/sampling.rs``: both ops are pure
+Data-parallel re-design of reference ``src/sampling.rs``: both ops are pure
 reshapes/broadcasts over the last axis, fully batched, fused by XLA.
 
 Deliberate fix (SURVEY.md §2 quirk 1): the reference's ``interpolate``
@@ -37,14 +37,13 @@ def _interp_matrix(chunk: int, b1: int) -> np.ndarray:
 
 
 def _dense_interpolate(src: jnp.ndarray, n_between: int) -> jnp.ndarray:
-    """Interpolation as a chunked dense **matmul** — the TPU formulation.
+    """Interpolation as a chunked dense **matmul**.
 
     The broadcasted form materializes a ``[..., n-1, n_between+1]`` tensor
-    whose tiny minor axis lane-pads badly on TPU (measured ~6x down on the
-    HBM-bound rate). Instead: split the ``n-1`` intervals into chunks of
+    with a tiny minor axis. Instead: split the ``n-1`` intervals into chunks of
     ``c``, extend each chunk with its right-neighbor sample, and apply a
-    precomputed ``[c+1, c*(n_between+1)]`` interpolation operator on the
-    MXU — all dense, ~``c`` MACs per output sample.
+    precomputed ``[c+1, c*(n_between+1)]`` interpolation operator — all
+    dense, ~``c`` MACs per output sample.
     """
     n = src.shape[-1]
     b1 = n_between + 1
@@ -80,34 +79,24 @@ def _broadcast_interpolate(src: jnp.ndarray, n_between: int) -> jnp.ndarray:
     return jnp.concatenate([flat, src[..., -1:]], axis=-1)
 
 
-def interpolate(src, n_between: int, dense: Optional[bool] = None) -> jnp.ndarray:
+def interpolate(src, n_between: int, dense: bool = False) -> jnp.ndarray:
     """Linearly interpolate ``n_between`` samples between consecutive pairs.
 
     Output length is ``n + (n - 1) * n_between`` (verified by the reference's
     tests, src/sampling.rs:98): each of the ``n-1`` source intervals expands
     to ``n_between + 1`` points, plus the final source sample.
 
-    Batched over leading axes. Realization is platform-dependent (override
-    with ``dense``): a chunked interpolation-operator matmul on TPU
-    (:func:`_dense_interpolate` — the broadcasted form's small minor axis
-    lane-pads there), one broadcasted multiply-add on the VPU elsewhere.
+    Batched over leading axes. One broadcasted multiply-add by default;
+    ``dense=True`` selects the chunked interpolation-operator matmul
+    (:func:`_dense_interpolate`).
     """
     src = jnp.asarray(src, dtype=cf32)
     n = src.shape[-1]
     if n < 2:
         return src
-    if dense is None:
-        dense = _on_tpu()
     if dense:
         return _dense_interpolate(src, n_between)
     return _broadcast_interpolate(src, n_between)
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,14 +108,13 @@ def _decim_select_matrix(chunk_out: int, dec: int) -> np.ndarray:
 
 
 def _dense_decimate(src: jnp.ndarray, dec: int) -> jnp.ndarray:
-    """Decimation as a chunked one-hot **matmul** — the TPU formulation.
+    """Decimation as a chunked one-hot **matmul**.
 
-    A strided lane slice (``x[..., ::dec]``) costs ~200x effective bandwidth
-    on the TPU backend (DEVNOTES.md), and reshaping to a ``[..., m, dec]``
-    minor axis hits 32x lane padding. Instead: reshape to major-axis chunks
+    Avoids the strided slice (``x[..., ::dec]``) and the tiny
+    ``[..., m, dec]`` minor axis. Instead: reshape to major-axis chunks
     ``[..., n/S, S]`` (``S = chunk_out * dec``, lane-aligned) and contract
-    the chunk with a precomputed ``[S, chunk_out]`` one-hot selector on the
-    MXU — dense accesses only, ~``chunk_out`` MACs per input sample.
+    the chunk with a precomputed ``[S, chunk_out]`` one-hot selector —
+    dense accesses only, ~``chunk_out`` MACs per input sample.
     """
     n = src.shape[-1]
     out_len = n // dec
@@ -145,17 +133,16 @@ def _dense_decimate(src: jnp.ndarray, dec: int) -> jnp.ndarray:
     return y.reshape(src.shape[:-1] + (out_len,))
 
 
-def downsample(src, out_len: int, dense: Optional[bool] = None) -> jnp.ndarray:
+def downsample(src, out_len: int, dense: bool = False) -> jnp.ndarray:
     """Integer decimation: every ``(n / out_len)``-th sample starting at 0.
 
     No anti-alias filter, matching reference ``downsample``
     (src/sampling.rs:28-42); only even decimations are supported
     (``n % out_len == 0`` asserted like the reference).
 
-    Realization is platform-dependent (override with ``dense``): on TPU a
-    chunked one-hot matmul (:func:`_dense_decimate` — strided slices are
-    pathological there), elsewhere the plain strided slice XLA lowers well.
-    Pipelines that decimate right after an FFT stage should prefer the
+    The plain strided slice by default; ``dense=True`` selects the chunked
+    one-hot matmul (:func:`_dense_decimate`). Pipelines that decimate
+    right after an FFT stage should prefer the
     fully fused :func:`..fft.fft_of_decimated`, which never materializes
     the full-rate signal at all.
     """
@@ -169,8 +156,6 @@ def downsample(src, out_len: int, dense: Optional[bool] = None) -> jnp.ndarray:
     dec = n // out_len
     if dec == 1:
         return src
-    if dense is None:
-        dense = _on_tpu()
     if dense:
         return _dense_decimate(src, dec)
     return src[..., ::dec]
@@ -181,8 +166,7 @@ def resample_fft(src, out_len: int, fft_backend=None) -> jnp.ndarray:
 
     Beyond the reference's linear-interp/decimate pair: exact for signals
     bandlimited below the smaller Nyquist, any rational ratio, and composed
-    purely of FFTs + dense slicing — the TPU-safe formulation (no strided
-    gathers, no convs). Energy-preserving convention: output amplitude
+    purely of FFTs + dense slicing (no strided gathers, no convs). Energy-preserving convention: output amplitude
     matches the input signal (``Scale`` handled internally).
     """
     from . import fft as _fft
@@ -266,7 +250,7 @@ def resample_poly(src, p: int, q: int) -> jnp.ndarray:
     operator (:func:`_farrow_matrix`) applied per input period: reshape
     into ``[n/q, q]`` periods, extend each with 1 left + 2 right neighbor
     samples (stride-1 slices — the overlap-save pattern), and batch-matmul
-    — MXU/VPU-dense, no gathers. Output length is ``n * p / q`` (input
+    — dense, no gathers. Output length is ``n * p / q`` (input
     length must divide by ``q``; pad to taste). Cubic interpolation is
     exact for polynomials up to degree 3 (tested) and ~-50 dB images for
     oversampled signals; pre-filter with :func:`~..fir.fir_filter_os` when
@@ -288,7 +272,7 @@ def resample_poly(src, p: int, q: int) -> jnp.ndarray:
     # windows: period k needs x[k*q - 1 .. k*q + q + 1] (q + 3 samples);
     # edge periods use zero padding (the causal/flush convention). Built
     # from whole q-sized slabs (dense concat of shifted slab views — the
-    # same TPU-safe pattern as the channelizer's overlapped frames)
+    # same pattern as the channelizer's overlapped frames)
     xp = jnp.pad(src, [(0, 0)] * (src.ndim - 1) + [(1, 2)])
     nslabs = 1 + -(-3 // q)  # slabs covering q + 3 samples
     total = (nper + nslabs - 1) * q
@@ -336,9 +320,8 @@ def fractional_delay(src, tau, fft_backend=None) -> jnp.ndarray:
     return plan.bwd(spec, _fft.Scale.N).astype(cf32)
 
 
-def downsample_by(src, factor: int, dense: Optional[bool] = None) -> jnp.ndarray:
-    """Decimate by an explicit integer factor (platform-aware like
-    :func:`downsample`)."""
+def downsample_by(src, factor: int, dense: bool = False) -> jnp.ndarray:
+    """Decimate by an explicit integer factor (see :func:`downsample`)."""
     factor = int(factor)
     n = jnp.shape(src)[-1]
     if n % factor != 0:

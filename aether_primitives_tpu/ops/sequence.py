@@ -1,6 +1,6 @@
 """Pseudo-random / M-sequence generation.
 
-TPU-native re-design of reference ``src/sequence.rs``. The reference's
+Data-parallel re-design of reference ``src/sequence.rs``. The reference's
 ``generate`` is a serial recurrence fed by an arbitrary closure — serial by
 definition (SURVEY.md §7 hard part #4). We provide three tiers:
 
@@ -8,7 +8,7 @@ definition (SURVEY.md §7 hard part #4). We provide three tiers:
   the short init/config sequences these are used for);
 - :func:`lfsr_generate` — jittable ``lax.scan`` for any linear recurrence
   ``x(n) = sum_k x(n - d_k) mod 2`` expressed by its delay taps;
-- :func:`lfsr_matrix_generate` — the TPU-parallel fast path: the recurrence
+- :func:`lfsr_matrix_generate` — the parallel fast path: the recurrence
   as a GF(2) companion-matrix system, generating whole blocks with one
   integer matmul per block (exact in f32/int32 since row sums ≤ order) and
   jumping the state with a precomputed matrix power. This is how a long
@@ -350,8 +350,8 @@ def dsss_despread(x, chips) -> jnp.ndarray:
     """Matched despread: correlate each ``L``-chip span with the code and
     normalize — the inverse of :func:`dsss_spread` (exact on clean input;
     noise is attenuated by the processing gain). ``[..., n*L] -> [..., n]``.
-    Realized as a reshape + small matvec against ``conj(chips)/L`` (MXU-
-    or VPU-friendly; no strided access)."""
+    Realized as a reshape + small matvec against ``conj(chips)/L`` (no
+    strided access)."""
     x = jnp.asarray(x)
     c = jnp.asarray(chips)
     ell = c.shape[-1]

@@ -10,7 +10,7 @@ soft-output (SISO) Chase decoders [Pyndiah, IEEE Trans. Comm. 46(8),
 high code rates (e.g. (32,26)^2 -> rate 0.66, (64,57)^2 -> 0.79)
 where convolutional turbo codes need heavy puncturing.
 
-Why this is TPU-shaped: a CPU TPC decoder walks row-by-row running a
+Why this is accelerator-shaped: a CPU TPC decoder walks row-by-row running a
 serial Chase loop per row. Here one half-iteration decodes ALL rows of
 ALL blocks in the batch as a single elementary-decoder call —
 ``[B·n, n]`` Chase trials expand to ``[B·n·2^p, n-1]`` Hamming decodes,
@@ -196,8 +196,8 @@ class TPC:
         # and Hamming-corrected positions ever differ across candidates
         # — the decoder CONFIRMS the current belief and adds beta on
         # the CHANNEL scale: lambda = d * (|r_in| + beta * rbar), i.e.
-        # extrinsic = +-beta*rbar. Two measured failure modes led here
-        # (full trajectories in tests/DEVNOTES): anchoring the fallback
+        # extrinsic = +-beta*rbar. Two observed failure modes led here
+        # (tests/test_tpc.py): anchoring the fallback
         # to the boosted |r_in| scale diverges after ~4 half-iterations
         # (BER 0.017 -> 0.15) because the fallback magnitude inflates
         # with each exchange; replacing the belief with beta alone

@@ -3,7 +3,7 @@ iterative decoding.
 
 Completes the channel-coding family next to :mod:`.fec` (conv/Viterbi),
 :mod:`.ldpc`, and :mod:`.rs` — the classic capacity-approaching code of
-cellular standards. TPU shape: the BCJR forward/backward recursions are
+cellular standards. Shape: the BCJR forward/backward recursions are
 ``lax.scan``s over ``[8]``-state metric vectors (the same
 vectorized-trellis idiom as :func:`~.fec.viterbi_decode`, twice), all
 branch metrics precomputed as one batched elementwise pass, and the
@@ -148,11 +148,10 @@ def _bcjr_maxlog(l_sys, l_par, l_apr, terminated: bool):
     the recursions pin state 0 at both ends.
 
     Layout: the scan carries ``(alpha, beta) [8, B]`` — states on the
-    SUBLANE axis, batch on lanes — and the step body is 8 static row
+    second-minor axis, batch minor — and the step body is 8 static row
     selects + FMAs per direction (coefficients are trace-time floats).
-    The old ``[B, 8]``-minor layout wasted 120 of 128 lanes on every one
-    of the ``2T`` serial steps and made batch scaling NEGATIVE (DEVNOTES
-    round-3/5 series); forward and time-reversed backward recursions
+    The old ``[B, 8]``-minor layout put an 8-wide axis minor on every one
+    of the ``2T`` serial steps; forward and time-reversed backward recursions
     advance in ONE scan (half the serial steps, identical output)."""
     nxt, prev_s, cu, cp, du, dp = _step_coeffs()
     b_sz, t_len = l_sys.shape
@@ -201,8 +200,7 @@ def _bcjr_maxlog(l_sys, l_par, l_apr, terminated: bool):
     return (m0 - m1).T  # [B, T], positive = bit 0
 
 
-def _bcjr_maxlog_windowed(l_sys, l_par, l_apr, window: int, guard: int,
-                          backend: str = "xla"):
+def _bcjr_maxlog_windowed(l_sys, l_par, l_apr, window: int, guard: int):
     """Windowed parallel max-log-MAP, BATCHED: ``l_* [B, T]`` →
     ``[B, T]`` — the hardware-decoder idiom: the block splits into
     ``T/window`` windows, each extended by ``guard`` warmup steps on both
@@ -214,13 +212,10 @@ def _bcjr_maxlog_windowed(l_sys, l_par, l_apr, window: int, guard: int,
     tail LLRs still bias decoder 1's end states through gamma).
 
     Layout: scan carry ``(alpha, beta) [8, W, B]`` — states on the
-    leading axis (static row selects), windows on sublanes, BATCH on
-    lanes. The old per-codeword ``[W, 8]``-minor form made batch scaling
-    negative (8/128 lanes, r3 record: 4x batch → 6x time); this one is
-    the same combined fwd+rev scan (half the serial steps — the single
-    reformulation that ever measured a win here; gather radix-4,
-    max-plus transition matmuls, slab framing all lost, DEVNOTES r3)
-    with every step op lane-full."""
+    leading axis (static row selects), windows second-minor, BATCH
+    minor. Unlike the old per-codeword ``[W, 8]``-minor form, this one
+    is the same combined fwd+rev scan (half the serial steps) with every
+    step op batch-wide on the minor axis."""
     nxt, prev_s, cu, cp, du, dp = _step_coeffs()
     b_sz, t_len = l_sys.shape
     n_win = -(-t_len // window)
@@ -241,27 +236,6 @@ def _bcjr_maxlog_windowed(l_sys, l_par, l_apr, window: int, guard: int,
 
     ls = windows(lsum)
     lp = windows(l_par)
-
-    if backend.startswith("pallas"):  # "pallas" | "pallas_interpret"
-        # resident-metric kernel (ops/pallas/bcjr.py): beta planes live in
-        # VMEM scratch, LLRs stream out of the forward pass — one HBM
-        # read of the spans, one write of the LLRs. Same expression tree
-        # as the scan below, so outputs are bit-identical (tested).
-        from .pallas.bcjr import bcjr_windowed_llr
-
-        lsf = ls.reshape(lw, -1)
-        n_cols = lsf.shape[1]
-        tile_n = 512 if n_cols >= 512 else 128
-        pad_cols = -(-n_cols // tile_n) * tile_n - n_cols
-        lsf = jnp.pad(lsf, [(0, 0), (0, pad_cols)])
-        lpf = jnp.pad(lp.reshape(lw, -1), [(0, 0), (0, pad_cols)])
-        llr_all = bcjr_windowed_llr(lsf, lpf, lw, tile_n=tile_n,
-                                    interpret=backend == "pallas_interpret")
-        llr_c = llr_all[:, :n_cols].reshape(lw, n_win, b_sz)[
-            guard:guard + window
-        ]
-        llr = jnp.transpose(llr_c, (2, 1, 0)).reshape(b_sz, t_pad)
-        return llr[:, :t_len]
 
     def step(carry, inp):
         alpha, beta = carry  # [8, W, B]
@@ -330,9 +304,9 @@ def turbo_decode(
     ``window + 2*guard`` with the windows batched — the throughput mode
     on accelerators; ``window = 0`` is the exact recursion. Pass the
     batch HERE rather than vmapping: the BCJR layouts put the batch on
-    the lane axis, which vmap (batch axis 0) cannot (the r4 20 Mbit/s
-    floor was the vmapped form; chip A/B in
-    benches/results_turbo_r5.json)."""
+    the minor axis, which vmap (batch axis 0) cannot."""
+    if bcjr_backend not in ("auto", "xla"):
+        raise ValueError(f"unknown bcjr_backend {bcjr_backend!r}")
     ls = jnp.asarray(llr_sys, jnp.float32)
     lp1 = jnp.asarray(llr_par1, jnp.float32)
     lp2 = jnp.asarray(llr_par2, jnp.float32)
@@ -356,28 +330,8 @@ def turbo_decode(
     ls2 = jnp.take(ls, perm, axis=-1)
 
     if window:
-        backend = bcjr_backend
-        if backend == "auto":
-            # the Pallas resident-metric kernel is bit-identical and 6-12x
-            # the XLA scan on chip (benches/results_turbo_r5.json); off-TPU
-            # the scan is the portable path (interpret mode is test-only).
-            # Single-codeword calls keep the scan: they are the form that
-            # runs INSIDE vmapped graphs (PacketModem.rx under rx_batch),
-            # where vmapping a pallas_call is not a path we validate —
-            # pass real batches here to engage the kernel.
-            try:
-                platform = jax.devices()[0].platform
-            except Exception:
-                platform = "cpu"
-            backend = (
-                "pallas" if platform == "tpu" and b_sz > 1 else "xla"
-            )
-        if backend not in ("xla", "pallas", "pallas_interpret"):
-            raise ValueError(f"unknown bcjr_backend {backend!r}")
-
         def _bcjr(ls_, lp_, la_, term_):
-            return _bcjr_maxlog_windowed(ls_, lp_, la_, window, guard,
-                                         backend=backend)
+            return _bcjr_maxlog_windowed(ls_, lp_, la_, window, guard)
     else:
         _bcjr = _bcjr_maxlog
 

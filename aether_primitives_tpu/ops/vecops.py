@@ -1,9 +1,9 @@
 """Element-wise complex vector kernels ("VecOps").
 
-TPU-native re-design of the reference's ``VecOps`` trait
+Functional re-design of the reference's ``VecOps`` trait
 (reference src/vecops.rs:39-332). The reference chains in-place mutations of
-a ``Vec<cf32>``; on TPU the idiomatic form is *functional*: each op returns a
-new (traced) array and XLA fuses the whole chain into a single VPU kernel
+a ``Vec<cf32>``; on an accelerator the idiomatic form is *functional*: each op returns a
+new (traced) array and XLA fuses the whole chain into a single elementwise kernel
 under ``jit`` — there is no per-op memory traffic to save by hand.
 
 Two API levels:

@@ -1,11 +1,11 @@
-"""Overlap-save halo exchange over ICI.
+"""Overlap-save halo exchange between neighboring devices.
 
-The TPU-native replacement for the reference's mpsc channel hop between
+The device-mesh replacement for the reference's mpsc channel hop between
 pipeline stages (SURVEY.md §5 "distributed communication backend"): when a
 long capture is sharded into contiguous time blocks across the mesh, FIR /
 correlation at block boundaries needs each shard to see the last ``K-1``
-samples of its **left** (earlier-time) neighbor. That halo moves over ICI
-with ``jax.lax.ppermute`` inside ``shard_map``; the first shard receives
+samples of its **left** (earlier-time) neighbor. That halo moves with
+``jax.lax.ppermute`` (NCCL on GPUs) inside ``shard_map``; the first shard receives
 zeros — exactly the zero initial filter state of the causal convention.
 
 Use :func:`sharded_fir` for the fused shard_map FIR, or call

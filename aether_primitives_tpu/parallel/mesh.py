@@ -3,7 +3,7 @@
 Sharding model (SURVEY.md §5 "long-context / sequence parallelism"): long
 captures shard into contiguous **time blocks** along one mesh axis, and
 independent **channels** (waterfall rows, parallel RX chains) along another.
-Collectives ride ICI; multi-host runs span processes with the same mesh via
+Collectives are XLA's (NCCL on GPUs); multi-host runs span processes with the same mesh via
 ``jax.distributed.initialize``.
 """
 
@@ -50,7 +50,7 @@ def init_distributed(**kwargs) -> None:
     """Multi-host runtime bring-up (``jax.distributed.initialize``).
 
     No-op if already initialized; pass coordinator_address/num_processes/
-    process_id explicitly off-TPU-pod.
+    process_id explicitly where no cluster environment provides them.
     """
     try:
         jax.distributed.initialize(**kwargs)

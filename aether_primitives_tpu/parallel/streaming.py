@@ -1,6 +1,6 @@
 """Sharded streaming graph executor and HBM block pool.
 
-TPU-native re-imagination of the reference's two concurrency components
+Device-side re-imagination of the reference's two concurrency components
 (SURVEY.md §2 #10-#11, §5):
 
 - the thread-per-stage mpsc **Pipeline** (reference src/pipeline.rs) becomes

@@ -1,18 +1,18 @@
 """Core sample types and block conventions.
 
 The reference defines ``cf32 = num_complex::Complex32`` with a documented
-interleaved-f32 ``repr(C)`` layout (reference src/lib.rs:8-17). The TPU-native
+interleaved-f32 ``repr(C)`` layout (reference src/lib.rs:8-17). The JAX
 equivalent is ``jnp.complex64``: numpy/JAX complex64 arrays are the same
 back-to-back ``(re: f32, im: f32)`` layout in host memory, so binary sample
 files interoperate bit-for-bit (see :mod:`aether_primitives_tpu.utils.file`).
 
 On device, XLA stores complex64 as split or interleaved planes as it sees
-fit; Pallas TPU kernels (which have no native complex dtype) receive split
-re/im f32 arrays via :func:`split_complex` / :func:`merge_complex`.
+fit; code that needs real planes (a kernel without a complex dtype, an
+f32 file) uses :func:`split_complex` / :func:`merge_complex`.
 
 Block convention: sample vectors are the **last axis** of an array; every op
 in :mod:`~aether_primitives_tpu.ops` is batched over all leading axes so that
-large batches keep the VPU/MXU full.
+large batches keep the device full.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import jax.numpy as jnp
 cf32 = jnp.complex64
 
 # Double-precision alias for parity with the reference (src/lib.rs:17). The
-# reference itself never uses cf64; on TPU f64 is emulated and slow, so this
+# reference itself never uses cf64; on accelerators f64 is slow, so this
 # exists for host-side golden computation only.
 cf64 = jnp.complex128
 
@@ -37,8 +37,8 @@ def as_cf32(x) -> jnp.ndarray:
 def split_complex(x):
     """Split a complex array into an (re, im) pair of f32 arrays.
 
-    This is the layout handed to Pallas TPU kernels, which have no native
-    complex dtype (SURVEY.md §7 hard part #1).
+    The layout for kernels without a native complex dtype (SURVEY.md §7
+    hard part #1).
     """
     x = jnp.asarray(x)
     return jnp.real(x).astype(jnp.float32), jnp.imag(x).astype(jnp.float32)

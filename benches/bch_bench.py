@@ -1,7 +1,7 @@
-"""Binary BCH throughput on chip (round 4: completing the classical FEC
-family alongside RS/Viterbi/LDPC/turbo/polar rows).
+"""Binary BCH throughput on the device (the classical FEC family alongside
+RS/Viterbi/LDPC/turbo/polar rows).
 
-Rows (decode-correctness asserted on chip before timing, t errors
+Rows (decode-correctness asserted on the device before timing, t errors
 planted per codeword):
 
 - BCH(255,191,t=8) batch 64 / 1024 — the PacketModem default;
@@ -10,7 +10,7 @@ planted per codeword):
 
 Writes benches/results_bch_r4.json. Mbit/s are INFO bits/s; coded
 bits/s also recorded. Timing: min of 3 marginal-cost rounds with a
-jitted digest (DEVNOTES methodology).
+jitted digest (the aether-bench methodology).
 """
 
 import json
@@ -181,7 +181,7 @@ def main():
         "bench": "binary BCH encode/decode throughput",
         "device": str(dev),
         "method": "min of 3 marginal-cost rounds, jitted digest; decode "
-                  "correctness asserted on chip per row (t planted errors)",
+                  "correctness asserted on the device per row (t planted errors)",
         "results": results,
     }
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),

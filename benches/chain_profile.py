@@ -3,8 +3,7 @@
 Times (marginal-cost methodology) the full jitted step and each stage in
 isolation — boundary merge, stage-1 einsum, combined stage-2 einsum, tail
 correction, demod — to show where the block time goes and how far the
-chain sits from the two-einsum roofline. Chip results recorded in
-DEVNOTES.md.
+chain sits from the two-einsum roofline.
 
 Usage: python benches/chain_profile.py [--cpu] [--n 4194304]
 """

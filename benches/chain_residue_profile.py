@@ -1,15 +1,11 @@
-"""Compiler-level attribution of the RX-chain composition residue
-(VERDICT r4 item 7): the chain runs at ~65% of the sum of its own
-measured stage times; rounds 2-4 established by timing alone that no
-reformulation wins it back. This script pins WHERE the residue goes with
-device-op evidence: a profiler trace of the streaming step at the
-headline config, aggregated per HLO op, cross-referenced against the
-compiled HLO text.
+"""Compiler-level attribution of the RX-chain step time: a profiler
+trace of the streaming step at the headline config, aggregated per HLO
+op, cross-referenced against the compiled HLO text — where the time goes
+beyond the sum of the chain's own stage times.
 
 Writes results_chain_residue_r5.json: per-op-kind time, the top
 individual fusions with shapes, and the share of the step spent outside
-the two einsum stages. The DEVNOTES entry interpreting this dump is the
-round-5 closure of the item (win or lose).
+the two einsum stages.
 """
 
 import collections

@@ -1,7 +1,7 @@
-"""On-chip throughput of the DDC path (NCO mix + fused OS decimating FIR).
+"""Device throughput of the DDC path (NCO mix + fused OS decimating FIR).
 
 Times three realizations of ``mix -> 129-tap lowpass -> /8`` on a
-device-resident capture, marginal-cost methodology (DEVNOTES.md):
+device-resident capture, marginal-cost methodology (see cli.py):
 
 - ``fused fold``: :func:`ops.fir.fir_filter_os_decimate` — product spectrum
   folded by ``dec``, inverse transform at ``1/dec`` the points;

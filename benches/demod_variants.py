@@ -1,4 +1,4 @@
-"""Whole-chain A/B of sign-demod layout strategies (TPU, interleaved).
+"""Whole-chain A/B of sign-demod layout strategies (interleaved rounds).
 
 The staged fused op emits ``zk [n1, nsym, r]`` (k1-leading) but the bit
 contract needs natural bin order ``k = k1 + n1*d`` -> ``[nsym, r, n1]``
@@ -6,9 +6,9 @@ flat. The relayout strategies under test:
 
 - ``u16-moveaxis`` (production): sign-test in staged layout, pack the two
   bits into a u16 word, ``moveaxis`` the 2-byte words, bitcast. 4x less
-  transpose traffic than moving spectra — but 16-bit transposes lower
-  poorly on TPU.
-- ``mxu-transpose``: relayout the COMPLEX zk on the MXU by contracting the
+  transpose traffic than moving spectra, in 16-bit transposes.
+- ``mxu-transpose``: relayout the COMPLEX zk on the matrix unit by
+  contracting the
   k1 axis with a 16x16 identity (``einsum('kfd,ke->fde')``). 0/1 products
   and single-term sums are exact in any precision, so this is bit-exact at
   ``Precision.DEFAULT``; sign-pack then happens in natural layout with no

@@ -1,14 +1,12 @@
-"""Batched-DOA scan throughput + correlator-2048 diagnosis (VERDICT r3
-items 7-8), one chip session, interleaved marginal-cost rounds.
+"""Batched-DOA scan throughput + correlator-2048 diagnosis, one device
+session, interleaved marginal-cost rounds.
 
-Part 1 — DOA scan mode: the round-3 figure (5513 est/s) is single-window
-latency on 8 elem x 512 snapshots; the batched scan runs [W, M, T] through
+Part 1 — DOA scan mode: single-window latency on 8 elem x 512
+snapshots against the batched scan, which runs [W, M, T] through
 one jitted covariance + eigh + grid-matmul + peaks graph. Bearings must
 match the per-window calls.
 
-Part 2 — correlator 2048: the r3 artifact's 5484 Msa/s @ 382 us/call is
-above the sub-200 us noise floor while 1024 ran 9951 — interleaved A/B of
-stage-1 factors n1 in {128 (table), 64 (heuristic), 32, 16, 8} on the
+Part 2 — correlator 2048: interleaved A/B of stage-1 factors n1 in {128 (table), 64 (heuristic), 32, 16, 8} on the
 chained fft->mul->ifft composition decides whether the 2048 chain is
 structurally slower or the table entry is wrong for chains.
 
@@ -104,7 +102,7 @@ def main(parts=("doa", "corr")):
         rw = jax.device_put(re_all[:w], dev)
         iw = jax.device_put(im_all[:w], dev)
         bw = np.asarray(fb(rw, iw))
-        # bearings unchanged vs per-window (0.1 deg = the chip DOA
+        # bearings unchanged vs per-window (0.1 deg = the device DOA
         # accuracy contract; batched vs single eigh round differently)
         worst = 0.0
         for j in (0, w // 2, w - 1):
@@ -185,7 +183,7 @@ def main(parts=("doa", "corr")):
         "bench": "batched DOA scan + correlator-2048 factor diagnosis",
         "device": str(dev),
         "method": "min of interleaved marginal-cost rounds, jitted digest; "
-                  "DOA bearings cross-checked vs per-window on chip",
+                  "DOA bearings cross-checked vs per-window on the device",
         "results": results,
     }
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),

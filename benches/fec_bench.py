@@ -1,14 +1,13 @@
-"""Soft-FEC throughput on chip: polar BP vs CA-SCL, NR-structured LDPC
-(VERDICT r3 items 3-4).
+"""Soft-FEC throughput on the device: polar BP vs CA-SCL, NR-structured
+LDPC.
 
-Rows (all decode-correctness-checked on chip before timing):
+Rows (all decode-correctness-checked on the device before timing):
 
-- polar (256,128) CA-SCL L=8 batch 64 — the round-3 slowest-FEC row
-  (1.3 Mbit/s) being attacked;
+- polar (256,128) CA-SCL L=8 batch 64;
 - polar (256,128) BP 40 iters at batch 64 / 1024 — the flooding path;
 - NR-structured BG2 z=64 k=500 e=1000 (rate 1/2) QC edge-message min-sum
   25 iters at batch 64 / 1024;
-- 802.11n n=648 QC edge decoder batch 1024 (round-3 reference row).
+- 802.11n n=648 QC edge decoder batch 1024.
 
 Writes benches/results_fec_r5.json. Mbit/s are INFO bits/s (payload);
 coded bits/s also recorded.
@@ -157,7 +156,7 @@ def main():
         "bench": "soft-FEC throughput (polar BP vs CA-SCL, NR LDPC)",
         "device": str(dev),
         "method": "min of 3 marginal-cost rounds, jitted digest; decode "
-                  "correctness asserted on chip per row",
+                  "correctness asserted on the device per row",
         "results": results,
     }
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),

@@ -1,10 +1,9 @@
 """Fold-chain experiment: can (decimating OS fold -> separate frame FFT ->
 demod) beat the production two-einsum fused chain?
 
-Motivation (DEVNOTES): the fused DDC fold measured 15.4 Gsa/s for
-mix+FIR+/8 — the forward span FFT + fold + 1/dec inverse runs near the
-elementwise floor, while the production chain's two-einsum frame op carries
-~0.3 ms of XLA composition overhead. This harness times, on one chip:
+Motivation: the fused DDC fold (forward span FFT + fold + 1/dec inverse)
+can run near the elementwise floor, while the two-einsum frame op pays
+XLA composition overhead. This harness times, on one device:
 
 - ``production``: RxChain.jitted (fused two-einsum + staged sign demod);
 - ``fold``: fir_filter_os_decimate -> [nsym, fft_len] reshape ->

@@ -1,8 +1,8 @@
-"""On-chip throughput of the polyphase filterbank channelizer.
+"""Device throughput of the polyphase filterbank channelizer.
 
 Times ``pfb_channelize`` (P-branch windowed-overlap-add + batched matmul
 FFT) against the plain chunked-FFT waterfall core (the P=1 rectangle) on a
-device-resident capture, marginal-cost methodology (DEVNOTES.md). Output
+device-resident capture, marginal-cost methodology (see cli.py). Output
 magnitude is digested on device; correctness is gated against the f64
 direct WOLA golden on a small prefix before timing.
 
@@ -98,17 +98,17 @@ def main():
     variants = [
         ("pfb P=%d" % p, lambda b: pfb_channelize(b.to_complex(), m, taps=h)),
         (
-            "os-pfb os=2 (analysis)",  # auto = Pallas resident-tile on TPU
+            "os-pfb os=2 (analysis)",
             lambda b: pfb_channelize_os(b.to_complex(), m, os=2),
         ),
         (
             "os-pfb os=2 (analysis, xla fold)",
-            lambda b: pfb_channelize_os(b.to_complex(), m, os=2, pallas=False),
+            lambda b: pfb_channelize_os(b.to_complex(), m, os=2),
         ),
         (
             "os-pfb os=2 (synthesis, xla)",
             lambda b: pfb_synthesize_os(
-                b.to_complex().reshape(-1, m), m, os=2, pallas=False
+                b.to_complex().reshape(-1, m), m, os=2
             ),
         ),
         (

@@ -1,9 +1,7 @@
-"""Polar BP scan-carry layout A/B on chip (round 4 open item).
+"""Polar BP scan-carry layout A/B on the device.
 
-DEVNOTES round-4 left one unprofiled row: ``polar_decode_bp`` at
-batch 1024 measured SLOWER in absolute Mbit/s than batch 64 (51.8 vs
-84.2 info Mbit/s, ``results_fec_r4.json``), inverting the universal
-batching win every other decoder shows. Hypothesis recorded there: the
+Question: does ``polar_decode_bp`` lose its batching win at large batch
+because of its scan carry? Hypothesis: the
 ``[stages+1, B, N]`` stacked scan carry — every one of the
 ``2*stages`` per-iteration column writes is a ``dynamic_update_slice``
 into the full (stages+1)-plane tensor, so if XLA fails to elide the
@@ -16,8 +14,7 @@ updating column ``s`` rebinds one tuple slot — no stacked-tensor
 update at all. Outputs must be bit-identical (same arithmetic, same
 order); only the carry layout differs.
 
-Interleaved A/B per DEVNOTES noise rules (sub-200 us rows are relay
-noise; use marginal_cost spans). Writes
+Interleaved A/B with marginal_cost spans. Writes
 ``benches/results_polar_layout_r4.json``.
 """
 

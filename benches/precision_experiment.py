@@ -1,10 +1,10 @@
-"""MXU precision trade-off for the fused RX frame op, measured on chip.
+"""Matmul-precision trade-off for the fused RX frame op, on the device.
 
-``Precision.HIGHEST`` emulates full f32 on the MXU (~6 bf16 passes per
-real matmul); ``HIGH`` uses bf16x3 (~half the passes). This script measures
-both accuracy (EVM vs a float64 reference, demod bit agreement) and speed
-of `fir_decimate_fft` at each setting, to decide whether the chain can run
-at HIGH. Results recorded in DEVNOTES.md.
+``Precision.HIGHEST`` asks for full f32 in every matmul; ``HIGH`` allows
+bf16x3 (or TF32 where the device has it). This script measures both
+accuracy (EVM vs a float64 reference, demod bit agreement) and speed of
+`fir_decimate_fft` at each setting, to decide whether the chain can run
+at HIGH.
 
 Usage: python benches/precision_experiment.py [--cpu] [--n 4194304]
 """

@@ -1,7 +1,7 @@
-"""QC-LDPC check-update layout A/B on chip (round 4).
+"""QC-LDPC check-update layout A/B on the device.
 
 Compares the committed decoder (degree-class-batched check update + ONE
-static sublane gather for circulant alignment, ops/ldpc.py) against the
+static gather for circulant alignment, ops/ldpc.py) against the
 round-3 formulation (Python loop over block rows + per-edge rolls),
 interleaved in one session. The old implementation is inlined below
 verbatim (from git history) so the A/B is honest — both run the same

@@ -1,11 +1,11 @@
 // Single-core CPU re-measurement of the reference's criterion bench bodies
-// (reference benches/benches.rs:1-424), used to anchor BASELINE.md.
+// (reference benches/benches.rs:1-424); its rows are in
+// benches/results_reference_cpu.jsonl.
 //
 // The image has no Rust toolchain, so the Rust criterion suite cannot run;
 // this is a faithful C++17 -O3 re-implementation of the same op bodies on
 // the same sizes (interleaved complex<float>, single thread). The FFT is an
-// iterative radix-2 Cooley-Tukey (rustfft would be faster; numbers labeled
-// accordingly in BASELINE.md). Timing: best-of-R medians of K-iteration
+// iterative radix-2 Cooley-Tukey (rustfft would be faster). Timing: best-of-R medians of K-iteration
 // loops, reported as ns/op like criterion.
 //
 // Build/run:  g++ -O3 -std=c++17 -march=native benches/reference_cpu.cpp \

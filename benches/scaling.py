@@ -1,14 +1,13 @@
 """Scaling-efficiency benchmark: sharded RX chain at 1..N devices.
 
-The north-star scaling metric (BASELINE.md: >= 85% samples/s efficiency at
-2 hosts) measured by running the time-sharded chain on growing device
+Scaling efficiency measured by running the time-sharded chain on growing device
 subsets of the available mesh and comparing per-device throughput against
 the single-device baseline.  Also times the UNSHARDED step on one device,
 so the 1-device row quantifies what the sharded graph itself costs
 (shard_map + halo machinery with nothing to exchange).
 
-On a multi-chip TPU slice this is the real measurement (halos ride ICI).
-On a single-chip or CPU host it still validates the sharded path end to end
+On a multi-GPU host this is the real measurement (halos ride NCCL).
+On a single-device or CPU host it still validates the sharded path end to end
 (pass --cpu to use the 8-virtual-device CPU mesh; numbers are then about
 the machinery, not the silicon).  For the multi-process (multi-host proxy)
 measurement see benches/scaling_distributed.py, which forms a
@@ -17,8 +16,7 @@ the process boundary.
 
 Timing mirrors the headline bench (aether_primitives_tpu/cli.py): jitted
 digest forces completion, marginal cost cancels the fixed sync overhead,
-best of several interleaved rounds rides out one-sided relay stalls
-(reference's own always-on throughput self-report:
+best of several interleaved rounds (reference's own always-on throughput self-report:
 /root/reference/src/pipeline.rs:100-107).
 
 Usage: python benches/scaling.py [--cpu] [--samples-per-dev 4194304]

@@ -1,10 +1,9 @@
 """Multi-process scaling proxy: the sharded RX chain across a process-
 spanning mesh (jax.distributed), timed.
 
-The north-star row "≥85% samples/s at 2 hosts" needs real multi-host TPU
-hardware; this is the closest measurable proxy available here: the SAME
-total device count arranged as 1 process × 8 devices vs 2 processes ×
-4 devices on localhost CPU, so the 2-process rate ÷ 1-process rate isolates
+A CPU-only localhost proxy for multi-host scaling: every worker is
+pinned to the CPU backend, and the SAME total device count is arranged
+as 1 process × 8 devices vs 2 processes × 4 devices, so the 2-process rate ÷ 1-process rate isolates
 exactly what crossing a process boundary costs (the cross-process halo +
 distributed-runtime dispatch — what DCN latency would add to on a real
 deployment, minus the wire).  The reference self-reports throughput
@@ -15,7 +14,7 @@ committed-artifact equivalent.
 Launcher mode (default): spawns the worker twice for nproc=1 and nproc=2,
 collects per-config throughput, prints + writes JSON.
 
-    python benches/scaling_distributed.py --json benches/results_scaling_r3_2proc.json
+    python benches/scaling_distributed.py --json /tmp/scaling_2proc.json
 
 Worker mode (internal): --worker <pid> <nproc> <port> [samples_per_dev]
 """

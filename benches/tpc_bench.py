@@ -1,6 +1,6 @@
-"""Turbo product code (Chase-Pyndiah) throughput on chip.
+"""Turbo product code (Chase-Pyndiah) throughput on the device.
 
-Rows (decode-correctness asserted on chip at Eb/N0 = 3 dB AWGN — raw
+Rows (decode-correctness asserted on the device at Eb/N0 = 3 dB AWGN — raw
 channel BER ~5% — before timing):
 
 - TPC(32,26)^2 p=4, 4 iterations, batch 16 / 64;
@@ -8,7 +8,7 @@ channel BER ~5% — before timing):
 
 Writes benches/results_tpc_r4.json. Mbit/s are INFO bits/s (k^2 per
 block). Timing: min of 3 marginal-cost rounds with a jitted digest
-(DEVNOTES methodology).
+(the aether-bench methodology).
 """
 
 import json
@@ -91,7 +91,7 @@ def main():
         "bench": "turbo product code Chase-Pyndiah throughput",
         "device": str(dev),
         "method": "min of 3 marginal-cost rounds, jitted digest; decode "
-                  "correctness asserted on chip per row at the stated "
+                  "correctness asserted on the device per row at the stated "
                   "Eb/N0 (raw channel BER ~3-5%)",
         "results": results,
     }

@@ -44,9 +44,6 @@ MODULES = [
     "aether_primitives_tpu.ops.turbo",
     "aether_primitives_tpu.ops.polar",
     "aether_primitives_tpu.ops.iir",
-    "aether_primitives_tpu.ops.pallas.cmul",
-    "aether_primitives_tpu.ops.pallas.stream",
-    "aether_primitives_tpu.ops.pallas.halo_rdma",
     "aether_primitives_tpu.models.modem",
     "aether_primitives_tpu.models.channelizer",
     "aether_primitives_tpu.models.ddc",

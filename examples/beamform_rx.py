@@ -17,17 +17,11 @@ Run: python examples/beamform_rx.py
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
 
-import sys
 
 import numpy as np
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.models import doa
     from aether_primitives_tpu.models.packet import PacketConfig, PacketModem
 

@@ -23,11 +23,6 @@ import numpy as np
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.models.channelizer import (
         PfbChannelizer,
         pfb_channelize,

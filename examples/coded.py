@@ -6,17 +6,11 @@ Run: python examples/coded.py
 """
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
-import sys
 
 import numpy as np
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.ops import fec, modulation
 
     rng = np.random.default_rng(815)

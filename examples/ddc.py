@@ -12,17 +12,11 @@ Run: python examples/ddc.py
 """
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
-import sys
 
 import numpy as np
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.models.ddc import Ddc, DdcConfig, Duc, DucConfig
     from aether_primitives_tpu.ops import fir, modulation
 

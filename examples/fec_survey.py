@@ -11,12 +11,10 @@ style, so the whole survey is a handful of device calls per code.
 Numbers are smoke-scale (a few hundred blocks), not publication
 curves; the per-family tests in ``tests/`` hold the rigorous
 waterfall/BLER assertions. Run: python examples/fec_survey.py
-(add --tpu to run on a real TPU chip).
 """
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
 import math
-import sys
 
 import numpy as np
 
@@ -33,8 +31,6 @@ def _awgn_llr(cw, ebn0_db, rate, rng):
 def main():
     import jax
 
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
 
     from aether_primitives_tpu.ops import bch, fec, ldpc, polar, rs, tpc, turbo
     from aether_primitives_tpu.ops.nr_ldpc import NrLdpc

@@ -13,17 +13,11 @@ Run: python examples/feedback_rx.py
 """
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
-import sys
 
 import numpy as np
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.models.sync import costas_loop, gardner_loop
     from aether_primitives_tpu.ops import fir as fir_mod
     from aether_primitives_tpu.ops import modulation as mod

@@ -19,23 +19,16 @@ The channel is deliberately hostile: 5 ppm chip-clock offset (TCXO
 class), residual CFO after acquisition, and enough noise that the raw
 prompt signs are useless without the carrier loop.
 
-Run: python examples/gnss_track.py          (CPU)
-     python examples/gnss_track.py --tpu    (real chip)
+Run: python examples/gnss_track.py
 """
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
 
-import sys
 
 import numpy as np
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.models.sync import (
         carrier_tracking_loop,
         code_tracking_loop,

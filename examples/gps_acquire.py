@@ -13,17 +13,11 @@ Run: python examples/gps_acquire.py
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
 
-import sys
 
 import numpy as np
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.models.caf import ambiguity
     from aether_primitives_tpu.ops.sequence import gps_ca_code
 

@@ -13,14 +13,6 @@ import numpy as np
 
 
 def main():
-    import jax
-
-    # demos use eager complex ops, which cannot cross the host<->device
-    # boundary on TPU runtimes without complex transfer (DEVNOTES.md) —
-    # run on CPU unless the user opts in with --tpu
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.models import Modem, ModemConfig
     from aether_primitives_tpu.ops import modulation, noise
 

@@ -7,23 +7,16 @@ and is rescued by soft-combining an rv2 retransmission — the 5G HARQ
 mechanism. Each transmission is just a different window of the same
 circular buffer; the receiver accumulates de-rate-matched LLRs.
 
-Run: python examples/nr_harq.py          (CPU)
-     python examples/nr_harq.py --tpu    (real chip)
+Run: python examples/nr_harq.py
 """
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
 
-import sys
 
 import numpy as np
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.ops.nr_ldpc import NrLdpc
 
     rng = np.random.default_rng(3)

@@ -11,17 +11,11 @@ Run: python examples/ofdm.py
 """
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
-import sys
 
 import numpy as np
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.models.ofdm import OfdmConfig, OfdmModem, cp_sync
     from aether_primitives_tpu.models.sync import OfdmEqualizer, apply_freq_shift
     from aether_primitives_tpu.ops import noise, sequence

@@ -121,8 +121,7 @@ def run_stateful_rx(n_blocks=8):
     rng = np.random.default_rng(0)
     x = (rng.normal(size=nblk * n_blocks)
          + 1j * rng.normal(size=nblk * n_blocks)).astype(np.complex64)
-    # f32 split boundary throughout: runs unchanged on TPU backends that
-    # cannot transfer complex arrays (like the other variants' f32 blocks)
+    # f32 split boundary throughout, like the other variants' f32 blocks
     ex = StatefulExecutor(
         chain.streaming_step_split, chain.init_state_split(),
         name="rx stream", depth=2,

@@ -10,18 +10,12 @@ Run: python examples/receiver.py
 """
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
-import sys
 
 import numpy as np
 
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.models import (
         OfdmEqualizer,
         RxChain,

@@ -16,17 +16,11 @@ Run: python examples/scanner.py
 """
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
-import sys
 
 import numpy as np
 
 
 def main():
-    import jax
-
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-
     from aether_primitives_tpu.models.amc import classify_modulation
     from aether_primitives_tpu.models.channelizer import pfb_channelize_os
     from aether_primitives_tpu.models.sync import estimate_baud_rate, estimate_timing

@@ -1,20 +1,19 @@
 """Multi-device RX chain demo: the full FIR -> decimate -> FFT -> demod
-chain sharded over a (channel, time) mesh with ICI halo exchange, verified
+chain sharded over a (channel, time) mesh with halo exchange, verified
 bit-identical to the single-device path.
 
-On a real TPU slice the mesh spans the chips (and hosts, with
-``parallel.mesh.init_distributed``); here it runs on 8 virtual CPU devices
-so the sharding machinery is demonstrable anywhere.
+On a multi-GPU host the mesh spans the cards (and hosts, with
+``parallel.mesh.init_distributed``; ``python chip_smoke.py --four-cards``
+runs it on four); here it runs on 8 virtual CPU devices so the sharding
+machinery is demonstrable anywhere.
 
 Run: python examples/sharded_rx.py
 """
 
 import _bootstrap  # noqa: F401  (offline bare-clone path setup)
 import os
-import sys
 
 import numpy as np
-
 
 
 def main():
@@ -23,8 +22,7 @@ def main():
     ).strip()
     import jax
 
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_platforms", "cpu")
 
     from aether_primitives_tpu.models import RxChain, RxChainConfig
     from aether_primitives_tpu.parallel import mesh as mesh_mod

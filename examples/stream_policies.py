@@ -1,4 +1,4 @@
-"""Stream edge policies and emission formats (round 5): what happens
+"""Stream edge policies and emission formats: what happens
 when a capture doesn't divide the frame span, and how production bit
 emission works.
 
@@ -7,9 +7,8 @@ emission works.
   (drop-free — the streaming receiver's policy);
 - ``step_padded``: zero-pad the tail frame (the reference waterfall's
   convention, reference src/util/plot.rs:50-57);
-- ``packed_bits``: MAC-layer byte emission (8 bits LSB-first) — the
-  chip-measured fast path (per-bit u8 emission costs 6x more than the
-  whole pack, DEVNOTES r5).
+- ``packed_bits``: MAC-layer byte emission (8 bits LSB-first), 8x less
+  output than one byte per bit.
 
 Run: python examples/stream_policies.py
 """
@@ -61,7 +60,7 @@ def main():
     bytes_out = np.asarray(packed.step(xb))
     assert np.array_equal(np.unpackbits(bytes_out, bitorder="little"), flat)
     print(f"packed_bits: {flat.shape[-1]} bits -> {bytes_out.shape[-1]} "
-          "bytes, unpackbits-identical (the 13.2 Gsa/s headline's "
+          "bytes, unpackbits-identical (the headline bench's "
           "emission format)")
     print("stream_policies: OK")
 

@@ -4,7 +4,7 @@ The round-1 advisor found the marginal-cost timer clamping negative spans
 to 1e-9 s and publishing ~exasample/s throughputs; these tests pin the
 fixed behavior: clean linear timing resolves, noise-dominated timing
 escalates and then reports failure (None) with an upper bound, and the
-plausibility guard rejects impossible HBM rates.
+plausibility guard rejects memory rates beyond the device's peak.
 """
 
 import numpy as np
@@ -46,10 +46,11 @@ def test_marginal_cost_escalates_until_resolved():
 
 
 def test_plausibility_guard():
+    h100 = 3.35e12  # bytes/s
     # 1e6 samples in 1 us -> 16 PB/s: impossible
-    assert not _plausible(1e-6, 1_000_000)
+    assert not _plausible(1e-6, 1_000_000, h100)
     # 1e6 samples in 100 us -> 160 GB/s: fine
-    assert _plausible(100e-6, 1_000_000)
+    assert _plausible(100e-6, 1_000_000, h100)
 
 
 def test_numpy_reference_bits_shapes_and_determinism():

@@ -1,6 +1,6 @@
 """Standard-table interop (ops/code_io.py): alist and QC .npz loaders,
 structural validation, and the golden end-to-end — a FILE-loaded foreign
-table decoding through the full burst link (VERDICT r4 item 4)."""
+table decoding through the full burst link."""
 
 import numpy as np
 import pytest

@@ -137,7 +137,7 @@ def test_2d_music_l_array(rng):
 
 
 def test_batched_scan_mode_matches_per_window(rng):
-    # VERDICT r3 item 7: estimate_doa over [W, M, T] in one graph must
+    # estimate_doa over [W, M, T] in one graph must
     # reproduce the per-window calls (every stage broadcasts)
     wins = np.stack([
         _two_source_snapshots(rng, deg=(-30.0 + 3 * w, 10.0 + 2 * w))

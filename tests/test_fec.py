@@ -213,10 +213,9 @@ def test_crc_append_check_and_detection(rng):
 def test_viterbi_windowed_matches_full_block(rng):
     """Windowed truncated-traceback decode (the streaming idiom) equals
     the full-block ML decode through error bursts when the guard covers
-    the survivor-merge depth (~5-7 K). At packet sizes full-block is
-    faster on chip; windowed is the long-stream mode (a 1M-bit stream
-    decodes at 19.2 Mbit/s windowed vs ~2 s of serial ACS steps
-    full-block; DEVNOTES r3)."""
+    the survivor-merge depth (~5-7 K). Windowed is the long-stream mode
+    (a 1M-bit stream is ~224 batched steps windowed vs a million serial
+    ACS steps full-block)."""
     for nbits in (1024, 777):
         bits = rng.integers(0, 2, nbits).astype(np.uint8)
         coded = np.asarray(fec.conv_encode(bits))
@@ -331,8 +330,8 @@ def test_conv_interleaver_block_permutation_and_spreading(rng):
 
 def test_conv_soft_windowed_matches_full_block(rng):
     """Windowed parallel max-log BCJR (round 5): sign-identical to the
-    exact full-block recursion at the operating guard, batched ==
-    per-stream, and the Pallas kernel bit-identical to the XLA scan."""
+    exact full-block recursion at the operating guard, and batched ==
+    per-stream."""
     bits = rng.integers(0, 2, 800).astype(np.uint8)
     enc = np.asarray(fec.conv_encode(bits))
     llr = ((1 - 2.0 * enc) * 2
@@ -340,9 +339,6 @@ def test_conv_soft_windowed_matches_full_block(rng):
     full = np.asarray(fec.conv_decode_soft(llr))
     wx = np.asarray(fec.conv_decode_soft(llr, window=96, guard=64,
                                          backend="xla"))
-    wp = np.asarray(fec.conv_decode_soft(llr, window=96, guard=64,
-                                         backend="pallas_interpret"))
-    assert np.array_equal(wx, wp)  # kernel == scan, bit for bit
     assert ((wx < 0) == (full < 0)).all()  # signs exact at this guard
     assert np.corrcoef(wx, full)[0, 1] > 0.999
 

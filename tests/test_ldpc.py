@@ -215,9 +215,7 @@ def test_qc_decoder_matches_dense(rng, wifi):
     schedule as the dense plane; on any correctable channel both converge
     to the transmitted codeword (f32 column-sum ORDER differs — the dense
     plane reduces over 324 rows, the edge decoder over its 88 edges — so
-    marginal undecodable frames may flip different bits). On chip it is
-    ~48x faster (0.15 vs 7.3 ms per 25-iteration batch-64 decode;
-    DEVNOTES r3)."""
+    marginal undecodable frames may flip different bits)."""
     h, g, info = wifi
     u = rng.integers(0, 2, (6, 324)).astype(np.uint8)
     cw = np.asarray(ldpc.ldpc_encode(u, g)).astype(np.float32)

@@ -89,7 +89,7 @@ def test_rx_chain_decodes_clean_signal():
 
 
 def test_rx_chain_fir_modes_agree():
-    # the TPU overlap-save realization must produce the same bits as the
+    # the overlap-save realization must produce the same bits as the
     # exact time-domain path (same filter, different factorization)
     rng = np.random.default_rng(7)
     n = 4 * 256 * 4
@@ -268,8 +268,8 @@ def test_rx_chain_precision_config():
     bad = RxChain(RxChainConfig(fft_len=256, decimation=4, precision="default"))
     with pytest.raises(ValueError, match="not allowed"):
         bad._einsum_precision()
-    # both allowed settings produce reference-exact bits (CPU computes f32
-    # regardless; the chip-measured accuracy trade-off lives in DEVNOTES)
+    # both allowed settings produce reference-exact bits (the CPU computes
+    # f32 regardless)
     rng = np.random.default_rng(60)
     n = 4 * 256 * 4
     x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
@@ -361,7 +361,7 @@ def test_step_split_and_plane_op_match_reference():
 
 @pytest.mark.parametrize("mode", ["fused", "os", "shift_add"])
 def test_rx_chain_streaming_equals_contiguous(mode):
-    # VERDICT r3 item 2: N successive streaming_step blocks of one
+    # N successive streaming_step blocks of one
     # contiguous capture must be bit-exact to the single contiguous step
     # (the per-block `step` corrupts K-1 samples per boundary).
     rng = np.random.default_rng(21)
@@ -500,9 +500,8 @@ def test_streaming_step_short_block_state():
 
 
 class TestRaggedTails:
-    """Tail-block policy for captures that don't divide frame_span
-    (VERDICT r4 item 8): strict by default with a precise error, and two
-    explicit policies — step_ragged (drop-free remainder carry) and
+    """Tail-block policy for captures that don't divide frame_span:
+    strict by default with a precise error, and two explicit policies — step_ragged (drop-free remainder carry) and
     step_padded (the reference waterfall's zero-pad convention)."""
 
     def _chain(self, **kw):
@@ -587,8 +586,7 @@ class TestRaggedTails:
 class TestPackedBits:
     """packed_bits emission: bytes hold 8 bits LSB-first
     (np.unpackbits(..., bitorder='little') restores the flat stream) —
-    the production MAC-layer format; measured 6x cheaper to emit than
-    per-bit u8 on chip (DEVNOTES r5 residue attribution)."""
+    the production MAC-layer format."""
 
     @pytest.mark.parametrize("fir_mode,backend,modulation", [
         ("fused", "matmul", "qpsk"),  # packed fast-path epilogue

@@ -201,10 +201,9 @@ def test_packet_through_channel_polar(rng):
 
 
 def test_preamble_is_host_constant():
-    """PacketModem.__init__ must not run eager device ops: an eager
-    `modulate` made the modem unconstructable in a TPU process (eager
-    conversions hit UNIMPLEMENTED there). The preamble is built in host
-    numpy and must equal the modulated Gold halves exactly."""
+    """PacketModem.__init__ must not run eager device ops: the preamble
+    is built in host numpy and must equal the modulated Gold halves
+    exactly."""
     from aether_primitives_tpu.ops import modulation as _mod
     from aether_primitives_tpu.ops import sequence as _seq
 
@@ -250,7 +249,7 @@ def test_ccsds_concatenated_fec(rng):
 
 @pytest.mark.parametrize("fec", ["viterbi", "ldpc11n", "rs", "ccsds"])
 def test_rx_batch_bit_identical_to_per_burst(rng, fec):
-    # VERDICT r3 item 1: rx_batch over [B, window] must be bit-identical
+    # rx_batch over [B, window] must be bit-identical
     # to per-window rx — different delay / CFO / payload per burst
     pm = PacketModem(PacketConfig(payload_bits=480, fec=fec))
     b = 4

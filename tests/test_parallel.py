@@ -96,7 +96,7 @@ def test_sharded_waterfall_matches_single(mesh8):
     ],
 )
 def test_sharded_streaming_matches_contiguous(mesh8, fir_mode, backend, modulation):
-    """The flagship composition (VERDICT r4 item 1): carried FIR state x
+    """The flagship composition: carried FIR state x
     time-axis halo x (channel, time) mesh. Four consecutive sharded
     streaming blocks must be bit-identical to ONE contiguous single-device
     step of the concatenated capture — the state hand-off at block

@@ -110,7 +110,7 @@ def test_resample_fft_roundtrip_bandlimited():
 
 
 def test_dense_decimate_matches_strided():
-    # the TPU matmul formulation must equal the strided slice exactly
+    # the matmul formulation must equal the strided slice exactly
     from aether_primitives_tpu.ops import sampling
 
     rng = np.random.default_rng(30)

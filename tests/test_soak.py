@@ -1,5 +1,5 @@
 """Soak test: thousands of stateful streaming blocks through one
-StatefulExecutor (VERDICT r4 item 6; the reference's pipeline example is
+StatefulExecutor (the reference's pipeline example is
 a 10-second sustained harness, reference examples/pipeline.rs:54,198).
 
 Opt-in (set ``AETHER_SOAK=1``) — the run takes minutes on the CPU

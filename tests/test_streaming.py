@@ -1,4 +1,4 @@
-"""Streaming executor + block pool tests (TPU-native equivalents of
+"""Streaming executor + block pool tests (device-side equivalents of
 reference src/pipeline.rs and src/pool.rs semantics)."""
 
 import jax.numpy as jnp

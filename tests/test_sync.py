@@ -572,7 +572,7 @@ def test_code_tracking_loop_holds_lock_under_drift(rng):
 
 
 def test_gnss_nav_bit_recovery_through_stress_channel(rng):
-    """VERDICT r3 item 9: the full GNSS tracking channel — early-late DLL
+    """The full GNSS tracking channel — early-late DLL
     (code) -> FLL-assisted Costas PLL (carrier) -> bit sync — recovers
     50 bps nav data through the round-3 stress channel (5 ppm chip-clock
     drift + 4e-5 cyc/sample residual CFO + noise), where the despread
